@@ -2,27 +2,52 @@
 """Smoke run of the PyTorch port (panda_gym_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times ROOT
 
-Phases, one progress line each:
+K1, the motor dynamics, is two kernels of one source: the lane-group kernel
+(8 lanes per env) and the one-env-per-thread kernel; the wrapper picks one
+from B and the card.  Phases, one progress line each:
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles every kernel of the main path with nvcc (sm_90a);
-  3. kernels: holds K1 against its plain PyTorch version on the card
-     (B 4096 and 4100, position and velocity control, 20 substeps);
-  4. main path: batched Reach, make_core("reach") -> batched_reset(4096) ->
-     50 batched_step calls; K1's launch count must rise by exactly 50, the
-     outputs must be finite and within the joint limits, and the first two
-     steps must agree with the plain physics;
-  5. times, with CUDA events: K1 per launch at B 4096 and 65536 beside its
-     bound, the plain version once, and batched_step env-steps/s;
-  6. profile: torch.profiler over 5 batched_step calls, the card's busy
-     share and the kernels that take the most device time.
+  2. build: compiles every kernel of the main path with nvcc (sm_90a) and
+     prints ptxas's registers and spill, each kernel's static SASS size and
+     largest loop (the substep loop) and the card's occupancy query;
+  3. kernels: holds each K1 kernel against its plain PyTorch version on the
+     card (B 1, 4096 and 4100, position and velocity control, 20
+     substeps); at bench.py's B = 65536 the two kernels must agree bit for
+     bit, and the one picked there must agree with the plain version on
+     every env but at most 16 near-ties: envs whose plain result itself
+     jumps by more than the tolerance when the state moves by 1e-6 (an
+     active-set or joint-limit decision at the rounding level), on one of
+     whose perturbed copies the kernel must agree;
+  4. main path: batched Reach, make_core("reach") -> batched_reset(B) ->
+     batched_step, at the main path's B = 4096 (50 steps) and at bench.py's
+     B = 65536 (10 steps); each K1 kernel's launch count is set to 0 before
+     each run and must rise by one per step for the kernel the wrapper
+     picks at that B and stay 0 for the other; the outputs must be finite
+     and within the joint limits, and the first two steps must agree with
+     the plain physics (at 65536 with phase 3's rule for near-ties);
+  5. times, with CUDA events: K1 per launch as the wrapper picks it, and
+     each kernel, at B 64, 512, 4096, 8192, 16384 and 65536, beside the
+     bound; the plain version once at 4096 and 65536; batched_step
+     env-steps/s at B 4096 and 65536;
+  6. profile: torch.profiler over 5 batched_step calls at each of those two
+     batches, the card's busy share and the kernels that take the most
+     device time.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero before
 those lines.  Imports torch, numpy, the standard library and the port only.
+
+``--times ROOT`` runs phases 1, 2, 5 and 6 only (K1 as the wrapper picks
+it, no plain version), on the port of the checkout at ROOT (for example the
+parent commit, unpacked with ``git archive``), and prints no result line:
+running it on two checkouts in turns (A, B, B, A) compares two versions on
+one card in one call.
 """
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,7 +56,13 @@ import numpy as np
 import torch
 
 B_MAIN = 4096
+# bench.py's batch, the JAX package's headline throughput
+B_BENCH = 65536
+# K1 timed at the trainer's batches (n_envs 64 and 512, THROUGHPUT_r05.json),
+# the main path's, two past one wave of the lane-group kernel, and bench.py's
+B_TIMED = (64, 512, B_MAIN, 8192, 16384, B_BENCH)
 N_STEPS = 50
+N_STEPS_BENCH = 10
 N_SUBSTEPS = 20
 DT = 1.0 / 500.0
 SEED = 0
@@ -61,6 +92,31 @@ def card_line():
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_loops(lib_path, nvcc):
+    """For each kernel in the library: its static SASS instruction count and
+    the sizes of its loops (a backward branch closes one), largest first,
+    from cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()}")
+    parts = re.split(r"Function : (\S+)", out.stdout)
+    result = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        ins = [(int(a, 16), op) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", body)]
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"BRA\s+(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                loops.append((addr - int(m.group(1), 16)) // 16 + 1)
+        result[name] = (len(ins), sorted(loops, reverse=True))
+    if not result:
+        fail("cuobjdump listed no kernel")
+    return result
 
 
 def motor_inputs(model, B, ctrl_mode, rng, device):
@@ -127,33 +183,63 @@ def time_cuda(fn, reps, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
+def k1_bound_ms(n_ops, B):
+    """Least time for K1 at batch B: the larger of its bytes (140 per env)
+    over the memory rate and its fp32 operations over the fp32 peak."""
+    return max(140.0 * B / PEAK_BYTES, float(n_ops) * B / PEAK_FP32_OPS) * 1e3
+
+
+def time_k1(fn, model, ctrl_mode, B, rng, device):
+    """Time per launch of fn(q, qd, target) at batch B, with CUDA events."""
+    q, qd, tgt = motor_inputs(model, B, ctrl_mode, rng, device)
+    return time_cuda(lambda: fn(q, qd, tgt), 10 if B > B_MAIN else 20)
+
+
+def time_step(make_core, B, dev, card):
+    """batched_step's wall time at batch B, host clock over 20 steps after 2
+    of warm-up, ending in a synchronize; returns what profile_step needs."""
+    env = make_core("reach", device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, _ = env.batched_reset(B, gen)
+    acts = [torch.rand(B, env.robot.action_dim, generator=gen,
+                       device=dev) * 2.0 - 1.0 for _ in range(4)]
+    for a in acts[:2]:
+        states, *_ = env.batched_step(states, a)
+    torch.cuda.synchronize()
+    n_timed = 20
+    t0 = time.perf_counter()
+    for i in range(n_timed):
+        states, *_ = env.batched_step(states, acts[i % len(acts)])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_timed
+    say(f"phase 5 batched_step B={B}: {step_s * 1e3:.3f} ms/step, "
+        f"{B / step_s:.0f} env-steps/s | {card}")
+    return env, states, acts
+
+
 def profile_step(env, states, acts, card):
     """Where a batched_step's time goes: torch.profiler over 5 steps, the
     card's busy share of the wall time and the kernels that take most."""
     from torch.profiler import ProfilerActivity, profile
 
-    try:
+    B = states.q.shape[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            states, *_ = env.batched_step(states, acts[i % len(acts)])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(5):
-                states, *_ = env.batched_step(states, acts[i % len(acts)])
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) is not None
-                   and str(e.device_type).endswith("CUDA")
-                   and getattr(e, "self_device_time_total", 0) > 0]
-    except Exception as e:  # a measurement, not a check: report and go on
-        say(f"phase 6 profile: not measured ({type(e).__name__}: {e})")
-        return
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
-        say("phase 6 profile: the profiler saw no device time (not measured)")
-        return
+        fail("phase 6 profile: the profiler saw no device time")
     n_launch = sum(e.count for e in kernels)
-    say(f"phase 6 profile of 5 batched_step at B={B_MAIN}: wall "
+    say(f"phase 6 profile of 5 batched_step at B={B}: wall "
         f"{wall_us / 5:.0f} us/step, card busy {busy_us / 5:.0f} us/step "
         f"({100 * busy_us / wall_us:.1f}%), {n_launch / 5:.0f} kernel "
         f"launches/step | {card}")
@@ -162,12 +248,203 @@ def profile_step(env, states, acts, card):
             f"{e.count / 5:6.1f}x  {e.key[:90]}")
 
 
+def k1_times(CD, model, rng, dev, card, each_kernel):
+    """Phase 5's K1 times at B_TIMED beside the bound: as the wrapper picks
+    the kernel and, with each_kernel, each kernel.  Returns {(B, lanes per
+    env): ms} for each kernel, and the operation count."""
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=N_SUBSTEPS, dt=DT,
+                                  ctrl_mode=0)
+    n_ops = count_plain_ops(model, 0)
+    times = {}
+    for B in B_TIMED:
+        ms = time_k1(k1, model, 0, B, rng, dev)
+        bound_ms = k1_bound_ms(n_ops, B)
+        line = (f"phase 5 K1 B={B}: {ms:.4f} ms/launch, bound "
+                f"{bound_ms:.5f} ms ({n_ops} fp32 ops/env counted from the "
+                f"plain version, {140 * B} bytes), {ms / bound_ms:.1f}x the "
+                f"bound")
+        if each_kernel:
+            for lanes in (CD.LANES, CD.THREAD):
+                times[B, lanes] = time_k1(
+                    lambda q, qd, t: k1.launch(q, qd, t, lanes), model, 0, B,
+                    rng, dev)
+            picked = CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+            line += (f"; lane-group kernel {times[B, CD.LANES]:.4f} ms, "
+                     f"one env per thread {times[B, CD.THREAD]:.4f} ms, "
+                     f"picked: {KERNEL_NAMES[picked]}")
+        say(f"{line} | {card}")
+    return times, n_ops
+
+
+def step_times(make_core, dev, card):
+    """Phase 5's batched_step times and phase 6's profiles, at the main
+    path's batch and at bench.py's."""
+    runs = [time_step(make_core, B, dev, card) for B in (B_MAIN, B_BENCH)]
+    for env, states, acts in runs:
+        profile_step(env, states, acts, card)
+
+
+KERNEL_NAMES = {8: "lane-group", 1: "one env per thread"}
+# phase 3 at bench.py's batch: most envs that may sit at a near-tie
+MAX_TIES = 16
+
+
+def is_near_tie(k1, lanes, q, qd, tgt, b, dev):
+    """Whether env b sits where the plain version is discontinuous (an
+    active-set or joint-limit decision whose margin is at the rounding
+    level).  Its state is copied 16 times, copies 1-15 scaled by 1 + 1e-6 N(0,
+    1): it is a near-tie if the plain results of the copies spread by more
+    than the tolerance, and the kernel agrees with the plain version within
+    the tolerance on at least one copy.  Returns (near-tie, copies agreeing,
+    plain spread in qd)."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    noise = 1e-6 * torch.randn(16, 7, generator=g, device=dev)
+    noise[0] = 0.0
+    x = [(t[b:b + 1] * (1.0 + noise)).contiguous() for t in (q, qd, tgt)]
+    qp, qdp = k1.plain(*x)
+    qk, qdk = k1.launch(*x, lanes)
+    spread_q = (qp - qp[:1]).abs().max().item()
+    spread_qd = (qdp - qdp[:1]).abs().max().item()
+    agree = (((qk - qp).abs() <= ATOL_Q) & ((qdk - qdp).abs() <= ATOL_QD)
+             ).all(1)
+    tie = (spread_q > ATOL_Q or spread_qd > ATOL_QD) and bool(agree.any())
+    return tie, int(agree.sum()), spread_qd
+
+
+def check_at_bench(CD, k1, q, qd, tgt, dev, err):
+    """Phase 3 at bench.py's batch: the two kernels must agree bit for bit,
+    and the one the wrapper picks there must agree with the plain version
+    within the tolerance on every env but a few near-ties (is_near_tie).
+    Returns the plain version's time in ms."""
+    B = q.shape[0]
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    qp, qdp = k1.plain(q, qd, tgt)
+    t1.record()
+    torch.cuda.synchronize()
+    out = {lanes: k1.launch(q, qd, tgt, lanes)
+           for lanes in (CD.LANES, CD.THREAD)}
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out[CD.LANES],
+                                                  out[CD.THREAD]))
+    say(f"phase 3 K1 B={B} ctrl_mode={k1.ctrl_mode}: the two kernels agree "
+        f"bit for bit: {same}")
+    if not same:
+        fail(f"the two K1 kernels disagree at B={B}")
+    lanes = CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+    e = hold_with_ties(k1, lanes, (q, qd, tgt), out[lanes], (qp, qdp),
+                       f"phase 3 K1 {KERNEL_NAMES[lanes]} vs plain: "
+                       f"ctrl_mode={k1.ctrl_mode} B={B}", dev)
+    for k in out:
+        err[k] = max(err[k], e)
+    return t0.elapsed_time(t1)
+
+
+def hold_with_ties(k1, lanes, x, out, ref, label, dev):
+    """Hold a kernel's (q, qd) against the plain version's on inputs x at
+    bench.py's batch: every env within the tolerance, or at most MAX_TIES of
+    them near-ties (is_near_tie).  Returns the largest error over the envs
+    within the tolerance."""
+    (qk, qdk), (qp, qdp) = out, ref
+    bad = (((qk - qp).abs() > ATOL_Q) | ((qdk - qdp).abs() > ATOL_QD)
+           ).any(1).nonzero().flatten().tolist()
+    good = torch.ones(qk.shape[0], dtype=torch.bool, device=dev)
+    good[bad] = False
+    eq = (qk - qp)[good].abs().max().item()
+    eqd = (qdk - qdp)[good].abs().max().item()
+    say(f"{label} max|dq|={eq:.3e} (atol {ATOL_Q}) max|dqd|={eqd:.3e} "
+        f"(atol {ATOL_QD}) on {int(good.sum())} envs; {len(bad)} outside "
+        f"the tolerance")
+    if eq > ATOL_Q or eqd > ATOL_QD or len(bad) > MAX_TIES:
+        fail(f"{label}: K1 disagrees with its plain version")
+    for b in bad:
+        tie, n_agree, spread = is_near_tie(k1, lanes, *x, b, dev)
+        say(f"  env {b}: max|dq|={(qk - qp)[b].abs().max().item():.3e} "
+            f"max|dqd|={(qdk - qdp)[b].abs().max().item():.3e}; 16 copies "
+            f"perturbed by 1e-6: plain spread in qd {spread:.3e}, kernel "
+            f"agrees on {n_agree}: {'near-tie' if tie else 'FAIL'}")
+        if not tie:
+            fail(f"{label}: K1 disagrees with its plain version on env {b}")
+    return max(eq, eqd)
+
+
+def drive(make_core, _hi_prec, CD, B, n_steps, dev):
+    """The main path at batch B: batched_reset, then n_steps batched_step
+    calls with random actions, K1's counts set to 0 just before and read
+    just after.  Returns the per-kernel launch counts, the largest error of
+    the first two steps against the plain physics, and the checks."""
+    env = make_core("reach", device="cuda")
+    motor = env.physics_step_batched.motor
+    # a second wrapper of the same kernels for the near-tie checks, whose
+    # launches stay out of the main path's counts
+    twin = CD.make_cuda_motor_steps(env.model, n_substeps=motor.n_substeps,
+                                    dt=motor.dt, ctrl_mode=motor.ctrl_mode)
+    q_lo = torch.as_tensor(env.model.q_lo, device=dev)
+    q_hi = torch.as_tensor(env.model.q_hi, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = env.batched_reset(B, gen)
+    err = 0.0
+    picked = CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+    motor.launches = 0
+    motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+    for i in range(n_steps):
+        actions = torch.rand(B, env.robot.action_dim, generator=gen,
+                             device=dev) * 2.0 - 1.0
+        if i < 2:
+            s_in = _hi_prec(env.robot.set_action)(states, actions)
+            q_ref, qd_ref = motor.plain(s_in.q, s_in.qd, s_in.ctrl_target)
+        states, obs, reward, terminated, truncated, info = env.batched_step(
+            states, actions)
+        if i < 2 and B == B_BENCH:
+            err = max(err, hold_with_ties(
+                twin, picked, (s_in.q, s_in.qd, s_in.ctrl_target),
+                (states.q, states.qd), (q_ref, qd_ref),
+                f"phase 4 B={B} step {i} vs plain physics:", dev))
+        elif i < 2:
+            eq = (states.q - q_ref).abs().max().item()
+            eqd = (states.qd - qd_ref).abs().max().item()
+            say(f"phase 4 B={B} step {i} vs plain physics: max|dq|={eq:.3e} "
+                f"max|dqd|={eqd:.3e}")
+            if eq > ATOL_Q or eqd > ATOL_QD:
+                fail(f"main-path step {i} at B={B} disagrees with the plain "
+                     f"physics")
+            err = max(err, eq, eqd)
+    torch.cuda.synchronize()
+    counts = dict(motor.kernel_launches)
+    checks = {
+        "obs finite": bool(torch.isfinite(obs["observation"]).all()),
+        "obs shape": tuple(obs["observation"].shape) == (B, 6),
+        "reward finite": bool(torch.isfinite(reward).all()),
+        "reward in {-1, 0}": bool(((reward == 0) | (reward == -1)).all()),
+        "q finite": bool(torch.isfinite(states.q).all()),
+        "q in limits": bool(((states.q >= q_lo) & (states.q <= q_hi)).all()),
+        "steps": bool((states.steps == n_steps).all()),
+    }
+    say(f"phase 4 main path: {n_steps} batched_step at B={B}, K1 launches "
+        f"{ {KERNEL_NAMES[k]: v for k, v in counts.items()} }, success rate "
+        f"{info['is_success'].float().mean().item():.4f}, checks {checks}")
+    if not all(checks.values()):
+        fail(f"main-path checks at B={B} failed: {checks}")
+    want = {CD.LANES: 0, CD.THREAD: 0}
+    want[picked] = n_steps
+    if counts != want:
+        fail(f"K1 launches at B={B} were {counts}, expected {want}")
+    return counts, err
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--times", metavar="ROOT",
+                    help="only build, time and profile the port of the "
+                         "checkout at ROOT")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- 1
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
-    root = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.abspath(args.times or os.path.dirname(__file__))
     sys.path.insert(0, root)
     try:
         from panda_gym_tpu_torch.envs.core import _hi_prec
@@ -191,130 +468,103 @@ def main():
         f"({lib._name})")
     for ln in info["ptxas"]:
         say(f"  ptxas: {ln}")
-
-    # ---------------------------------------------------------------- 3
+    for name, (n_ins, loops) in sass_loops(lib._name,
+                                           _build.nvcc_path()).items():
+        say(f"phase 2 SASS {name}: {n_ins} instructions, largest loops "
+            f"{loops[:4]}")
     model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
     rng = np.random.default_rng(SEED)
-    err_q = err_qd = 0.0
-    plain_ms = None
+    if args.times:
+        say(f"times of the port in {root}")
+        k1_times(CD, model, rng, dev, card, each_kernel=False)
+        step_times(make_core, dev, card)
+        print(card, flush=True)
+        return 0
+    for lanes in (CD.LANES, CD.THREAD):
+        occ = CD.occupancy(dev.index, lanes)
+        say(f"phase 2 occupancy, {KERNEL_NAMES[lanes]} kernel: {occ['regs']} "
+            f"registers/thread, {occ['local_bytes']} bytes local "
+            f"memory/thread, {occ['blocks_per_sm']} blocks of "
+            f"{occ['threads_per_block']} threads ({occ['warps_per_sm']} "
+            f"warps) resident per SM")
+    say(f"phase 2 dispatch: the lane-group kernel up to "
+        f"{CD.lanes_wave(dev.index)} envs (one wave on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), "
+        f"one env per thread past it")
+
+    # ---------------------------------------------------------------- 3
+    err = {CD.LANES: 0.0, CD.THREAD: 0.0}
+    plain_ms = {}
     for ctrl_mode in (0, 1):
         k1 = CD.make_cuda_motor_steps(model, n_substeps=N_SUBSTEPS, dt=DT,
                                       ctrl_mode=ctrl_mode)
-        for B in (B_MAIN, B_MAIN + 4):
+        for B in (1, B_MAIN, B_MAIN + 4, B_BENCH):
             q, qd, tgt = motor_inputs(model, B, ctrl_mode, rng, dev)
-            qk, qdk = k1(q, qd, tgt)
+            if B == B_BENCH:
+                plain_ms[B] = check_at_bench(CD, k1, q, qd, tgt, dev, err)
+                continue
             torch.cuda.synchronize()
-            if ctrl_mode == 0 and B == B_MAIN:
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
             qp, qdp = k1.plain(q, qd, tgt)
-            if ctrl_mode == 0 and B == B_MAIN:
-                t1.record()
+            t1.record()
+            torch.cuda.synchronize()
+            if ctrl_mode == 0:
+                plain_ms[B] = t0.elapsed_time(t1)
+            for lanes in (CD.LANES, CD.THREAD):
+                qk, qdk = k1.launch(q, qd, tgt, lanes)
                 torch.cuda.synchronize()
-                plain_ms = t0.elapsed_time(t1)
-            eq = (qk - qp).abs().max().item()
-            eqd = (qdk - qdp).abs().max().item()
-            ok = eq <= ATOL_Q and eqd <= ATOL_QD
-            say(f"phase 3 K1 vs plain: ctrl_mode={ctrl_mode} B={B} "
-                f"max|dq|={eq:.3e} (atol {ATOL_Q}) "
-                f"max|dqd|={eqd:.3e} (atol {ATOL_QD}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                bad = ((qk - qp).abs() > ATOL_Q).any(1) | (
-                    (qdk - qdp).abs() > ATOL_QD).any(1)
-                fail(f"K1 disagrees with its plain version on "
-                     f"{int(bad.sum())} of {B} envs")
-            err_q, err_qd = max(err_q, eq), max(err_qd, eqd)
+                eq = (qk - qp).abs().max().item()
+                eqd = (qdk - qdp).abs().max().item()
+                ok = eq <= ATOL_Q and eqd <= ATOL_QD
+                say(f"phase 3 K1 {KERNEL_NAMES[lanes]} vs plain: "
+                    f"ctrl_mode={ctrl_mode} B={B} max|dq|={eq:.3e} (atol "
+                    f"{ATOL_Q}) max|dqd|={eqd:.3e} (atol {ATOL_QD}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad = ((qk - qp).abs() > ATOL_Q).any(1) | (
+                        (qdk - qdp).abs() > ATOL_QD).any(1)
+                    fail(f"K1 ({KERNEL_NAMES[lanes]}) disagrees with its "
+                         f"plain version on {int(bad.sum())} of {B} envs")
+                err[lanes] = max(err[lanes], eq, eqd)
 
     # ---------------------------------------------------------------- 4
-    env = make_core("reach", device="cuda")
-    motor = env.physics_step_batched.motor
-    q_lo = torch.as_tensor(env.model.q_lo, device=dev)
-    q_hi = torch.as_tensor(env.model.q_hi, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    states, obs = env.batched_reset(B_MAIN, gen)
-    motor.launches = 0
-    for i in range(N_STEPS):
-        actions = torch.rand(B_MAIN, env.robot.action_dim, generator=gen,
-                             device=dev) * 2.0 - 1.0
-        if i < 2:
-            s_in = _hi_prec(env.robot.set_action)(states, actions)
-            q_ref, qd_ref = motor.plain(s_in.q, s_in.qd, s_in.ctrl_target)
-        states, obs, reward, terminated, truncated, info = env.batched_step(
-            states, actions)
-        if i < 2:
-            eq = (states.q - q_ref).abs().max().item()
-            eqd = (states.qd - qd_ref).abs().max().item()
-            say(f"phase 4 step {i} vs plain physics: max|dq|={eq:.3e} "
-                f"max|dqd|={eqd:.3e}")
-            if eq > ATOL_Q or eqd > ATOL_QD:
-                fail(f"main-path step {i} disagrees with the plain physics")
-            err_q, err_qd = max(err_q, eq), max(err_qd, eqd)
-    torch.cuda.synchronize()
-    launches = motor.launches
-    if launches != N_STEPS:
-        fail(f"K1 launched {launches} times in {N_STEPS} steps")
-    checks = {
-        "obs finite": bool(torch.isfinite(obs["observation"]).all()),
-        "obs shape": tuple(obs["observation"].shape) == (B_MAIN, 6),
-        "reward finite": bool(torch.isfinite(reward).all()),
-        "reward in {-1, 0}": bool(((reward == 0) | (reward == -1)).all()),
-        "q finite": bool(torch.isfinite(states.q).all()),
-        "q in limits": bool(((states.q >= q_lo) & (states.q <= q_hi)).all()),
-        "steps": bool((states.steps == N_STEPS).all()),
-    }
-    say(f"phase 4 main path: {N_STEPS} batched_step at B={B_MAIN}, "
-        f"K1 launches {launches}, success rate "
-        f"{info['is_success'].float().mean().item():.4f}, checks {checks}")
-    if not all(checks.values()):
-        fail(f"main-path checks failed: {checks}")
+    launches = {}
+    for B, n_steps in ((B_MAIN, N_STEPS), (B_BENCH, N_STEPS_BENCH)):
+        counts, e = drive(make_core, _hi_prec, CD, B, n_steps, dev)
+        for lanes, n in counts.items():
+            if n:
+                launches[lanes] = (B, n)
+                err[lanes] = max(err[lanes], e)
+    if set(launches) != {CD.LANES, CD.THREAD}:
+        fail(f"a K1 kernel was launched on no main path: {launches}")
 
     # ---------------------------------------------------------------- 5
-    k1 = CD.make_cuda_motor_steps(model, n_substeps=N_SUBSTEPS, dt=DT,
-                                  ctrl_mode=0)
-    n_ops = count_plain_ops(model, 0)
-    times = {}
-    for B, reps in ((B_MAIN, 20), (65536, 5)):
-        q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
-        ms = time_cuda(lambda: k1(q, qd, tgt), reps)
-        bound_ms = max(140.0 * B / PEAK_BYTES, float(n_ops) * B
-                       / PEAK_FP32_OPS) * 1e3
-        times[B] = (ms, bound_ms)
-        say(f"phase 5 K1 B={B}: {ms:.4f} ms/launch, bound {bound_ms:.5f} ms "
-            f"({n_ops} fp32 ops/env counted from the plain version, "
-            f"{140 * B} bytes), {ms / bound_ms:.1f}x the bound | {card}")
-    say(f"phase 5 plain version B={B_MAIN}: {plain_ms:.1f} ms for one call "
-        f"| {card}")
+    times, n_ops = k1_times(CD, model, rng, dev, card, each_kernel=True)
+    for B, ms in plain_ms.items():
+        if B in (B_MAIN, B_BENCH):
+            say(f"phase 5 plain version B={B}: {ms:.1f} ms for one call "
+                f"| {card}")
     say("phase 5 library: no single PyTorch call computes K1's function")
-    acts = [torch.rand(B_MAIN, env.robot.action_dim, generator=gen,
-                       device=dev) * 2.0 - 1.0 for _ in range(4)]
-    for a in acts[:2]:
-        states, *_ = env.batched_step(states, a)
-    torch.cuda.synchronize()
-    n_timed = 20
-    t0 = time.perf_counter()
-    for i in range(n_timed):
-        states, *_ = env.batched_step(states, acts[i % len(acts)])
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / n_timed
-    say(f"phase 5 batched_step B={B_MAIN}: {step_s * 1e3:.3f} ms/step, "
-        f"{B_MAIN / step_s:.0f} env-steps/s | {card}")
+    step_times(make_core, dev, card)
 
-    profile_step(env, states, acts, card)
-
-    ms, bound_ms = times[B_MAIN]
-    row = {
-        "name": "K1 motor_steps", "route": "cuda",
-        "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
-        "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
-        "launches": launches, "max_abs_err": max(err_q, err_qd),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if float(n_ops) / PEAK_FP32_OPS
-        > 140.0 / PEAK_BYTES else "bytes",
-        "library_ms": None,
-    }
+    rows = []
+    for lanes, tag in ((CD.LANES, "lanes"), (CD.THREAD, "thread")):
+        B, n = launches[lanes]
+        rows.append({
+            "name": f"K1 motor_steps_{tag}_kernel (B={B})", "route": "cuda",
+            "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
+            "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
+            "launches": n, "max_abs_err": err[lanes],
+            "ms": times[B, lanes], "plain_ms": plain_ms[B],
+            "bound_ms": k1_bound_ms(n_ops, B),
+            "bound_by": "operations" if float(n_ops) / PEAK_FP32_OPS
+            > 140.0 / PEAK_BYTES else "bytes",
+            "library_ms": None,
+        })
     say(f"done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

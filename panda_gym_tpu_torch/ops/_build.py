@@ -72,7 +72,8 @@ def load(name: str) -> ctypes.CDLL:
                 f"nvcc failed on {src} (exit {res.returncode}):\n{res.stderr}")
         os.replace(tmp, lib_path)
         ptxas = [ln.strip() for ln in res.stderr.splitlines()
-                 if any(w in ln for w in ("registers", "spill", "stack"))]
+                 if any(w in ln for w in ("Function properties", "registers",
+                                          "spill", "stack"))]
     BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
     lib = ctypes.CDLL(str(lib_path))
     _LIBS[name] = lib

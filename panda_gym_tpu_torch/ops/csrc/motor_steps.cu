@@ -14,20 +14,79 @@
 //
 // What bounds it: per env it reads 3x7 and writes 2x7 floats (140 B) and
 // does ~82k fp32 operations per policy step, so it is bound by operations,
-// not bytes; and the operations form one long dependent chain per env.
-// The design keeps that chain in registers: one env per thread, q/qd/target
-// loaded once, the cold pre-solve and all substeps run without touching
-// device memory, q/qd stored once.  The model tables travel as a by-value
-// kernel argument, which the card keeps in its constant bank and
-// broadcasts to the warp (the __constant__ route, without a global symbol,
-// so two models can be in flight).  All dof loops are unrolled so every
-// array index is known at compile time and the arrays live in registers.
+// not bytes.  Those operations are one long chain per env.  Two kernels
+// compute it, and the wrapper (ops/cuda_dynamics.py) picks one from B and
+// what the card reports:
 //
-// Layout: the kernel reads and writes the (B, 7) row-major tensors
-// directly.  A warp's 7 loads of one array cover one contiguous 896-byte
-// span, so every sector fetched is used; a transpose to (7, B) would cost
-// two more launches and twice the traffic for no gain at 140 B per env.
-// The ragged last block is masked; nothing is padded.
+// motor_steps_lanes_kernel, up to one wave of its grid (every block
+// resident at once: 132 SMs x 2 blocks x 16 envs = 4,224 envs on the H100).
+// At the batches the trainer and the env step use (B = 64 ... 4096) one
+// thread per env leaves most of the 132 SMs idle and each busy scheduler
+// with one warp whose chain nothing hides.  So one env runs on a group of
+// 8 lanes:
+//
+//   - lane d < 7 owns dof d, lane 7 is spare; 4 envs per warp, 16 per
+//     128-thread block, so B = 4096 is 256 blocks and B = 512 is 32;
+//   - split by dof, each lane for its own joint: the joint frame
+//     (sincosf and the rotation), the link's own RNEA force (two inertia
+//     products and the gyroscopic terms), one column of the CRBA mass
+//     matrix (an independent chain of force_to_parent, up to 6 hops) and
+//     one row of each 7x7 matrix-vector product of the LCP;
+//   - split by vector or row, with the link recursions kept in order: the
+//     RNEA motion sweep carries om, v, aom, av on lanes 0-3, one vector
+//     each, and the CRBA composite-inertia sweep one 3x3 row each on lanes
+//     0-2; the two sweeps are independent, so they run interleaved, one link
+//     of each per step, sharing the step's two exchanges;
+//   - the two Cholesky factorizations of a warm substep (M for the free
+//     velocity, and the active-set matrix A, which depends only on the
+//     carried active set) run in the same instructions: lanes 0-3 factor M,
+//     lanes 4-7 factor A, and each solution is broadcast from its lane.
+//     This takes one 7x7 factorization off every lane's path (warm_iters
+//     is 1) at the cost of 231 registers against 186, still 2 blocks per
+//     SM: measured against every lane factoring both, K1 is 6-8% faster at
+//     B = 64 and 512 and 3-4% at 4096 and 65536 (PERF.md);
+//   - computed alike on every lane: the RNEA force sweep (link to link),
+//     the Cholesky substitutions and the active-set update.  A Cholesky
+//     column waits on a sqrt and a reciprocal, so spreading its rows would
+//     save a few multiply-adds against an exchange per column; computed
+//     alike, every lane holds the full q, qd, target, active set and
+//     solution.
+//   Every scalar is computed by one lane in the order of operations of the
+//   plain version; parallelism comes from computing different scalars on
+//   different lanes, never from re-associating a sum.  Where lanes run one
+//   code path for different roles, a role's missing term is an exact zero.
+//
+// motor_steps_thread_kernel, past that wave: one env per thread, the whole
+// chain in registers.  A warp of lane groups serves 4 envs where one of
+// threads serves 32, and the work that every lane repeats is issued once
+// per 4 envs; once the card is full time follows the instructions issued
+// per env, about 1,000 per substep in the lane groups against about 240
+// here, so at B = 65536 (the batch of the repo's bench.py) the lane groups
+// take about 4.7x as long.  Both kernels share the helpers below and keep
+// the plain version's order of operations.
+//
+// The rest of this note is about the lane-group kernel.
+//
+// Exchange goes through a per-group scratch area in shared memory, written
+// by its owner lane and read after __syncwarp(): the joint frames once per
+// substep, two exchanges per link of the interleaved sweeps, the link
+// forces once, the mass-matrix rows once, and the LCP's row products and
+// solutions.  Constants: what every lane reads alike (link constants indexed
+// by an unrolled loop, dt, the gain, the loop counts, the composite masses
+// folded on the host) is read from the by-value kernel argument, i.e. the
+// constant bank, which broadcasts a word to the warp; a lane's own joint
+// constants (axis, frame, mass, CoM, inertia rows) are picked once at kernel
+// start into registers or into the scratch, so no constant-bank read ever
+// differs across lanes.
+
+// Ragged edge: the lanes of a group whose env index is >= B stay in the warp
+// and compute on the last env (b clamped to B-1), so every lane reaches every
+// __syncwarp(); only their stores are masked.  The spare lane 7 computes a
+// copy of dof 6 into its own scratch slots and stores nothing.
+//
+// Layout: each lane loads the env's 3x7 inputs (the 8 lanes of a group read
+// the same 84 bytes, a broadcast); lane d < 7 stores element d, so a warp
+// stores 4 contiguous rows.  No transpose, no padding.
 //
 // Arithmetic follows ops/scalarized.py term by term, in the same order, and
 // is built without FMA contraction (-fmad=false in ops/_build.py) so that it
@@ -40,6 +99,9 @@
 namespace {
 
 constexpr int N = 7;
+constexpr int LANES = 8;                  // lanes per env
+constexpr int THREADS = 128;              // threads per block
+constexpr int GROUPS = THREADS / LANES;   // envs per block
 
 // Model tables, all float32, as packed by ops/cuda_dynamics.py (same order).
 struct Model {
@@ -58,6 +120,8 @@ struct Model {
 struct Args {
   Model m;
   float cap[N];        // effort * dt, folded in double as the plain version does
+  float comp_m[N];     // CRBA: mass of the composite body of link d (q-independent)
+  float comp_w[N];     // CRBA: 1 / max(comp_m[d-1], 1e-12), the CoM weight at link d
   float vgain;         // position_gain / dt, folded in double
   float dt;
   int n_substeps;
@@ -66,17 +130,34 @@ struct Args {
   int warm_iters;
 };
 
+// One group's scratch in shared memory.  Slots are indexed by lane (lane 7
+// writes only its own slot 7).  Records of 20 floats keep the 16-byte loads
+// of 8 lanes from 8 different records free of bank conflicts; the size, 696
+// floats (24 mod 32), puts the 4 groups of a warp in different banks.
+struct __align__(16) Scratch {
+  float X[LANES][20];    // joint frame of the lane's joint: R (9), p (3), axis (3)
+  float Mo[N][16];       // motion of link d: om, v, aom, av (3 each, padded to 4)
+  float F[LANES][8];     // the lane's own link force: n (3), pad, f (3), pad
+  float C[LANES][16];    // composite body of link d: I (9), c (3), m
+  float I0[3][N][4];     // row r of each link's own inertia (constant)
+  float T[4][4];         // composite sweep: rows of I_com R^T
+  float M[LANES][8];     // row d of the mass matrix, M[d][0..d]
+  float G[6][8];         // LCP exchange: M qd_free, M v_des, M v_free, M u by
+                         // row (one per lane); the solutions fv and u
+  float pad[20];
+};
+
 struct V3 { float x, y, z; };
 struct M3 { float a[9]; };
 
 __device__ __forceinline__ V3 vadd(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 vsub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
 __device__ __forceinline__ V3 vscale(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
 __device__ __forceinline__ float vdot(V3 a, V3 b) { return (a.x * b.x + a.y * b.y) + a.z * b.z; }
 __device__ __forceinline__ V3 vcross(V3 a, V3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }
 __device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ void store3(float* p, V3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
 __device__ __forceinline__ M3 load9(const float* p) {
   M3 r;
 #pragma unroll
@@ -105,32 +186,45 @@ __device__ __forceinline__ M3 mm(const M3& A, const M3& B) {
                        A.a[3 * i + 2] * B.a[6 + j];
   return r;
 }
-__device__ __forceinline__ M3 mT(const M3& A) {
-  M3 r;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) r.a[3 * i + j] = A.a[3 * j + i];
-  return r;
-}
-// skew(v) skew(v)^T
-__device__ __forceinline__ M3 skew_sq(V3 v) {
-  M3 S = {{0.f, -v.z, v.y, v.z, 0.f, -v.x, -v.y, v.x, 0.f}};
-  return mm(S, mT(S));
+// Row i of skew(v) skew(v)^T.  The plain version forms the product with the
+// zeros of skew(v) in place; the terms dropped here are exact zeros, so the
+// nonzero entries round alike.
+__device__ __forceinline__ V3 skew_sq_row(int i, V3 v) {
+  const float xy = -(v.x * v.y), xz = -(v.x * v.z), yz = -(v.y * v.z);
+  if (i == 0) return {v.z * v.z + v.y * v.y, xy, xz};
+  if (i == 1) return {xy, v.z * v.z + v.x * v.x, yz};
+  return {xz, yz, v.y * v.y + v.x * v.x};
 }
 
-// Child-body frame pose in parent coords for the revolute joint d at angle q
-// (scalarized.py:_joint_X with axis_angle).
-__device__ __forceinline__ void joint_X(const Model& m, int d, float q, M3& R, V3& p) {
-  const float c = cosf(q), s = sinf(q);
-  const float x = m.axis[d][0], y = m.axis[d][1], z = m.axis[d][2];
-  const float C1 = 1.0f - c;
-  M3 A = {{c + (x * x) * C1, (x * y) * C1 - z * s, (x * z) * C1 + y * s,
-           (y * x) * C1 + z * s, c + (y * y) * C1, (y * z) * C1 - x * s,
-           (z * x) * C1 - y * s, (z * y) * C1 + x * s, c + (z * z) * C1}};
-  R = mm(load9(m.XR[d]), A);
-  p = load3(m.Xp[d]);
+// a[i] for a lane-dependent i: a chain of selects over unrolled constant
+// indices, so the table is only ever read at addresses uniform to the warp.
+__device__ __forceinline__ float pick(int i, const float (&a)[N]) {
+  float r = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = i == k ? a[k] : r;
+  return r;
 }
+__device__ __forceinline__ V3 pick_v3(int i, const float (&a)[N][3]) {
+  float r[3];
+#pragma unroll
+  for (int w = 0; w < 3; ++w) {
+    r[w] = a[0][w];
+#pragma unroll
+    for (int k = 1; k < N; ++k) r[w] = i == k ? a[k][w] : r[w];
+  }
+  return {r[0], r[1], r[2]};
+}
+__device__ __forceinline__ M3 pick_m3(int i, const float (&a)[N][9]) {
+  M3 r;
+#pragma unroll
+  for (int w = 0; w < 9; ++w) {
+    r.a[w] = a[0][w];
+#pragma unroll
+    for (int k = 1; k < N; ++k) r.a[w] = i == k ? a[k][w] : r.a[w];
+  }
+  return r;
+}
+__device__ __forceinline__ V3 pick3(int i, V3 a, V3 b, V3 c) { return i == 0 ? a : (i == 1 ? b : c); }
 
 __device__ __forceinline__ void force_to_parent(const M3& R, V3 p, V3& n, V3& f) {
   const V3 f_p = mv(R, f);
@@ -143,18 +237,454 @@ __device__ __forceinline__ void inertia_mul(float m, V3 c, const M3& I, V3 om, V
   f = vscale(m, vadd(v, vcross(om, c)));
 }
 
+// The lane's own joint: its constants, picked once at kernel start.
+struct Lane {
+  int l;     // lane in the group, 0..7
+  int d;     // dof it owns (lane 7: a copy of dof 6)
+  int r;     // row it takes in the composite sweep (lanes 3..7: a copy of row 2)
+  V3 ax, com;
+  float mass;
+  M3 XR, I;
+};
+
+// Child-body frame rotation in parent coords for a revolute joint with
+// frame rotation XR and axis ax at angle q (scalarized.py:_joint_X with
+// axis_angle).
+__device__ __forceinline__ M3 joint_R(const M3& XR, V3 ax, float q) {
+  float s, c;
+  sincosf(q, &s, &c);
+  const float x = ax.x, y = ax.y, z = ax.z;
+  const float C1 = 1.0f - c;
+  const M3 A = {{c + (x * x) * C1, (x * y) * C1 - z * s, (x * z) * C1 + y * s,
+                 (y * x) * C1 + z * s, c + (y * y) * C1, (y * z) * C1 - x * s,
+                 (z * x) * C1 - y * s, (z * y) * C1 + x * s, c + (z * z) * C1}};
+  return mm(XR, A);
+}
+
+// The RNEA forward sweep (scalarized.py:rnea, qdd = 0), one link d, split
+// by motion vector: lane role 0 carries om, 1 v, 2 aom, 3 av (lanes 4-7 a
+// copy of role 3).  Each role's update has the same form
+//   X = R^T (X_parent + Y_parent x p) [+ vj for om] [+ Z x vj]
+// with Y = om for v, aom for av (the parent's, from s.Mo), Z = om for aom,
+// v for av (this link's, published in between), and zero elsewhere; the
+// zero terms add exact zeros, so every entry rounds as in the plain version.
+// Half 1 computes R^T(...) and publishes om and v of link d.
+__device__ __forceinline__ V3 motion_half1(const Model& m, const Scratch& s, int role, int d,
+                                           V3 X, V3 vj) {
+  const V3 zero = {0.f, 0.f, 0.f};
+  V3 Y = zero;
+  if (d > 0) Y = role == 1 ? load3(s.Mo[d - 1]) : (role == 3 ? load3(s.Mo[d - 1] + 8) : zero);
+  const V3 Xn = mtv(load9(s.X[d]), vadd(X, vcross(Y, load3(m.Xp[d]))));
+  return vadd(Xn, role == 0 ? vj : zero);
+}
+// Half 2, after the exchange: the Coriolis terms of aom and av.
+__device__ __forceinline__ V3 motion_half2(const Scratch& s, int role, int d, V3 X, V3 vj) {
+  const V3 zero = {0.f, 0.f, 0.f};
+  const V3 Z = role == 2 ? load3(s.Mo[d]) : (role == 3 ? load3(s.Mo[d] + 4) : zero);
+  return vadd(X, vcross(Z, vj));
+}
+
+// The CRBA composite sweep (scalarized.py:crba with _inertia_to_parent), one
+// link d: the composite body of link d (CoM cc, row r of its inertia Ir)
+// moves into its parent's frame and joins link d-1's own body.  Lanes 0-2
+// take one row each.  Half 1 publishes row r of I_com R^T.
+__device__ __forceinline__ void composite_half1(const Lane& me, Scratch& s, float m_c, int d,
+                                                V3 cc, V3 Ir) {
+  const int r = me.r;
+  const M3 R = load9(s.X[d]);
+  const V3 sk = skew_sq_row(r, cc);
+  const V3 Icom = {Ir.x - m_c * sk.x, Ir.y - m_c * sk.y, Ir.z - m_c * sk.z};
+  if (me.l < 3) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      s.T[r][j] = (Icom.x * R.a[3 * j] + Icom.y * R.a[3 * j + 1]) + Icom.z * R.a[3 * j + 2];
+  }
+}
+// Half 2, after the exchange: row r of I_com_p = R T, the parent's new
+// composite, published to s.C[d-1].
+__device__ __forceinline__ void composite_half2(const Args& a, const Lane& me, Scratch& s, int d,
+                                                V3& cc, V3& Ir) {
+  const Model& m = a.m;
+  const int r = me.r;
+  const M3 R = load9(s.X[d]);
+  const float m_c = a.comp_m[d];
+  const V3 c_p = vadd(mv(R, cc), load3(m.Xp[d]));
+  const V3 Rr = pick3(r, load3(R.a), load3(R.a + 3), load3(R.a + 6));
+  V3 Ip;
+  Ip.x = (Rr.x * s.T[0][0] + Rr.y * s.T[1][0]) + Rr.z * s.T[2][0];
+  Ip.y = (Rr.x * s.T[0][1] + Rr.y * s.T[1][1]) + Rr.z * s.T[2][1];
+  Ip.z = (Rr.x * s.T[0][2] + Rr.y * s.T[1][2]) + Rr.z * s.T[2][2];
+  const V3 skp = skew_sq_row(r, c_p);
+  const float m_p = m.mass[d - 1];
+  cc = vscale(a.comp_w[d], vadd(vscale(m_p, load3(m.com[d - 1])), vscale(m_c, c_p)));
+  const V3 I0 = load3(s.I0[r][d - 1]);
+  Ir = {I0.x + (Ip.x + m_c * skp.x), I0.y + (Ip.y + m_c * skp.y), I0.z + (Ip.z + m_c * skp.z)};
+  if (me.l < 3) store3(s.C[d - 1] + 3 * r, Ir);
+  if (me.l == 0) {
+    store3(s.C[d - 1] + 9, cc);
+    s.C[d - 1][12] = a.comp_m[d - 1];
+  }
+}
+
+// Bias force C(q, qd) qd + G(q) by RNEA with qdd = 0 into tau (every lane),
+// and the joint-space mass matrix by CRBA into s.M (row d holds M[d][0..d]);
+// scalarized.py:rnea and :crba.  Reads the joint frames from s.X.
+//
+// The RNEA motion sweep (one vector per lane) and the CRBA composite sweep
+// (one row per lane) do not depend on each other, so they run interleaved,
+// one link of each per step, and share the step's two exchanges.  Each lane
+// then computes its own link's force from the published motion; then the
+// RNEA force sweep (every lane alike) runs interleaved with the CRBA column
+// of the lane's dof.
+__device__ __forceinline__ void bias_and_mass(const Args& a, const Lane& me, Scratch& s,
+                                              const float (&qd)[N], float (&tau)[N]) {
+  const Model& m = a.m;
+  const int role = me.l < 4 ? me.l : 3;
+  V3 X = {0.f, 0.f, role == 3 ? 9.81f : 0.f};  // base accel = -g
+  V3 cc = load3(m.com[N - 1]);
+  V3 Ir = load3(s.I0[me.r][N - 1]);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int d = N - 1 - k;  // the composite sweep's link
+    const V3 vj = vscale(qd[k], load3(m.axis[k]));
+    X = motion_half1(m, s, role, k, X, vj);
+    if (role < 2) store3(s.Mo[k] + 4 * role, X);
+    if (d > 0) composite_half1(me, s, a.comp_m[d], d, cc, Ir);
+    __syncwarp();
+    X = motion_half2(s, role, k, X, vj);
+    if (role >= 2 && me.l < 4) store3(s.Mo[k] + 4 * role, X);
+    if (d > 0) composite_half2(a, me, s, d, cc, Ir);
+    __syncwarp();
+  }
+  {
+    const float* o = s.Mo[me.d];
+    const V3 om = load3(o), v = load3(o + 4);
+    V3 hn, hf, n, f;
+    inertia_mul(me.mass, me.com, me.I, om, v, hn, hf);
+    inertia_mul(me.mass, me.com, me.I, load3(o + 8), load3(o + 12), n, f);
+    store3(s.F[me.l], vadd(n, vadd(vcross(om, hn), vcross(v, hf))));
+    store3(s.F[me.l] + 4, vadd(f, vcross(om, hf)));
+  }
+  __syncwarp();
+
+  // force sweep from the tip (link d = N-1-h), and column me.d of M: M[d][d],
+  // then M[d][j-1] as the force crosses joint j = d-h
+  V3 fn = load3(s.F[N - 1]), ff = load3(s.F[N - 1] + 4);
+  const float* Cd = s.C[me.d];
+  V3 Fn, Ff;
+  inertia_mul(Cd[12], load3(Cd + 9), load9(Cd), me.ax, V3{0.f, 0.f, 0.f}, Fn, Ff);
+  float* Mrow = s.M[me.l];
+  Mrow[me.d] = vdot(me.ax, Fn);
+#pragma unroll
+  for (int h = 0; h < N - 1; ++h) {
+    const int d = N - 1 - h;
+    tau[d] = vdot(load3(m.axis[d]), fn);
+    V3 n = fn, f = ff;
+    force_to_parent(load9(s.X[d]), load3(m.Xp[d]), n, f);
+    fn = vadd(load3(s.F[d - 1]), n);
+    ff = vadd(load3(s.F[d - 1] + 4), f);
+
+    const int j = me.d - h;
+    const int jc = j >= 1 ? j : 1;  // spent lanes run on a valid joint; nothing is stored
+    force_to_parent(load9(s.X[jc]), load3(s.X[jc] + 9), Fn, Ff);
+    const float Mdj = vdot(load3(s.X[jc - 1] + 12), Fn);
+    if (j >= 1) Mrow[j - 1] = Mdj;
+  }
+  tau[0] = vdot(load3(m.axis[0]), fn);
+  __syncwarp();
+}
+
+// Index-unrolled Cholesky factor of A (scalarized.py:cholesky_factor):
+// lower L and the reciprocals of its diagonal.
+__device__ __forceinline__ void cholesky_factor(const float (&A)[N][N], float (&L)[N][N],
+                                                float (&inv)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = A[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
+      if (i == j) {
+        L[i][i] = sqrtf(fmaxf(s, 1e-9f));
+        inv[i] = 1.0f / L[i][i];
+      } else {
+        L[i][j] = s * inv[j];
+      }
+    }
+  }
+}
+
+// Forward and back substitution with a factor (scalarized.py:
+// cholesky_substitute).
+__device__ __forceinline__ void cholesky_subst(const float (&L)[N][N], const float (&inv)[N],
+                                               const float (&b)[N], float (&x)[N]) {
+  float y[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = b[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
+    y[i] = s * inv[i];
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
+    x[i] = s * inv[i];
+  }
+}
+
+// The active-set matrix of the motor LCP: M on the saturated rows and
+// columns, the identity elsewhere.
+__device__ __forceinline__ void active_matrix(const bool (&sat)[N], const float (&M)[N][N],
+                                              float (&A)[N][N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) A[i][j] = (sat[i] && sat[j]) ? M[i][j] : (i == j ? 1.0f : 0.0f);
+}
+
+// Row i of M v, for the lane that owns row i (matvec order of ops).
+__device__ __forceinline__ float row_dot(const float (&Mi)[N], const float (&v)[N]) {
+  float s = Mi[0] * v[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) s = s + Mi[j] * v[j];
+  return s;
+}
+__device__ __forceinline__ void load7(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = p[i];
+}
+__device__ __forceinline__ void store7(float* p, const float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) p[i] = v[i];
+}
+
+// One substep of one env on its group of 8 lanes (scalarized.py:
+// motor_substep).  cold: seed the active set from the unconstrained pass and
+// run cold_iters refinements; else refine the carried (sat, sign) warm_iters
+// times.  Updates q, qd unless seed_only, and always returns the new
+// (sat, sign).  Every lane holds the env's full q, qd, tgt, sat and sign and
+// leaves with the same values; all 8 lanes must call it together.
+__device__ __forceinline__ void motor_substep(const Args& a, const Lane& me, Scratch& s,
+                                              float (&q)[N], float (&qd)[N],
+                                              const float (&tgt)[N], bool cold, bool seed_only,
+                                              bool (&sat)[N], float (&sign)[N]) {
+  const Model& m = a.m;
+  float v_des[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    const float v = a.ctrl_mode == 0 ? a.vgain * (tgt[d] - q[d]) : tgt[d];
+    v_des[d] = fminf(fmaxf(v, -m.vel_limit[d]), m.vel_limit[d]);
+  }
+
+  {
+    const M3 R = joint_R(me.XR, me.ax, pick(me.d, q));
+#pragma unroll
+    for (int i = 0; i < 9; ++i) s.X[me.l][i] = R.a[i];
+  }
+  __syncwarp();
+
+  float bias[N], M[N][N], Mr[N];
+  bias_and_mass(a, me, s, qd, bias);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      M[i][j] = s.M[i][j];
+      M[j][i] = M[i][j];
+    }
+  // row me.d of M, for the products split by row
+#pragma unroll
+  for (int j = 0; j < N; ++j) Mr[j] = j <= me.d ? s.M[me.d][j] : s.M[j][me.d];
+
+  // Factor M for the free-velocity solve.  In the warm pass the first
+  // active-set matrix depends only on the carried active set, so it is
+  // factored in the same instructions: lanes 0-3 factor M, lanes 4-7 A.
+  float L[N][N], inv[N];
+  {
+    float A[N][N], F[N][N];
+    active_matrix(sat, M, A);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) F[i][j] = (cold || me.l < 4) ? M[i][j] : A[i][j];
+    cholesky_factor(F, L, inv);
+  }
+  float rhs[N], fv[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) rhs[i] = -bias[i];
+  cholesky_subst(L, inv, rhs, fv);
+  if (me.l == 0) store7(s.G[4], fv);
+  __syncwarp();
+  load7(s.G[4], fv);
+  float qd_free[N], Mqf[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) qd_free[d] = qd[d] + a.dt * fv[d];
+  s.G[0][me.l] = row_dot(Mr, qd_free);
+  if (cold) s.G[1][me.l] = row_dot(Mr, v_des);
+  __syncwarp();
+  load7(s.G[0], Mqf);
+
+  float c[N], x[N];
+  int n_iters;
+  if (cold) {
+    float Mv[N];
+    load7(s.G[1], Mv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      x[i] = Mv[i] - Mqf[i];
+      sat[i] = fabsf(x[i]) > a.cap[i];
+      c[i] = fminf(fmaxf(x[i], -a.cap[i]), a.cap[i]);
+    }
+    n_iters = a.cold_iters;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) c[i] = a.cap[i] * sign[i];
+    n_iters = a.warm_iters;
+  }
+
+  float u[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) u[i] = v_des[i];
+#pragma unroll 1
+  for (int it = 0; it < n_iters; ++it) {
+    // rows S (saturated): M_SS u_S = c_S + (M qd_free)_S - M_SF v_des_F
+    // rows F (free):      u_F = v_des_F
+    if (cold || it > 0) {
+      float A[N][N];
+      active_matrix(sat, M, A);
+      cholesky_factor(A, L, inv);
+    }
+    float vf[N], mvf[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) vf[i] = sat[i] ? 0.0f : v_des[i];
+    s.G[2][me.l] = row_dot(Mr, vf);
+    __syncwarp();
+    load7(s.G[2], mvf);
+#pragma unroll
+    for (int i = 0; i < N; ++i) rhs[i] = sat[i] ? (c[i] + Mqf[i]) - mvf[i] : v_des[i];
+    cholesky_subst(L, inv, rhs, u);  // lanes 4-7 hold the factor of A
+    if (me.l == 4) store7(s.G[5], u);
+    __syncwarp();
+    load7(s.G[5], u);
+    float Mu[N];
+    s.G[3][me.l] = row_dot(Mr, u);
+    __syncwarp();
+    load7(s.G[3], Mu);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      x[i] = Mu[i] - Mqf[i];
+      // saturated stays iff the deficit still pushes into the cap; free
+      // joints whose required impulse exceeds the cap saturate
+      sat[i] = sat[i] ? ((v_des[i] - u[i]) * c[i] >= 0.0f) : (fabsf(x[i]) > a.cap[i]);
+      c[i] = fminf(fmaxf(x[i], -a.cap[i]), a.cap[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) sign[i] = x[i] >= 0.0f ? 1.0f : -1.0f;
+  if (seed_only) return;
+
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    const float q_new = q[d] + a.dt * u[d];
+    const float q_cl = fminf(fmaxf(q_new, m.q_lo[d]), m.q_hi[d]);
+    qd[d] = q_cl != q_new ? 0.0f : u[d];
+    q[d] = q_cl;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+motor_steps_lanes_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
+                   const float* __restrict__ tgt_in, float* __restrict__ q_out,
+                   float* __restrict__ qd_out, int B, const Args a) {
+  __shared__ Scratch scratch[GROUPS];
+  const Model& m = a.m;
+  Lane me;
+  me.l = threadIdx.x % LANES;
+  me.d = me.l < N ? me.l : N - 1;
+  me.r = me.l < 3 ? me.l : 2;
+  me.ax = pick_v3(me.d, m.axis);
+  me.com = pick_v3(me.d, m.com);
+  me.XR = pick_m3(me.d, m.XR);
+  me.I = pick_m3(me.d, m.inertia);
+  me.mass = pick(me.d, m.mass);
+
+  const int g = threadIdx.x / LANES;
+  const int b = blockIdx.x * GROUPS + g;
+  const long long off = static_cast<long long>(b < B ? b : B - 1) * N;
+  Scratch& s = scratch[g];
+  float q[N], qd[N], tgt[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) {
+    q[d] = q_in[off + d];
+    qd[d] = qd_in[off + d];
+    tgt[d] = tgt_in[off + d];
+  }
+  // constant parts of the scratch: the joint origins and axes, and the
+  // composite of the last link (its own body)
+  store3(s.X[me.l] + 9, pick_v3(me.d, m.Xp));
+  store3(s.X[me.l] + 12, me.ax);
+  if (me.l < 3) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      store3(s.I0[me.r][k], pick3(me.r, load3(m.inertia[k]), load3(m.inertia[k] + 3),
+                                  load3(m.inertia[k] + 6)));
+    store3(s.C[N - 1] + 3 * me.r, load3(s.I0[me.r][N - 1]));
+  }
+  if (me.l == 0) {
+    store3(s.C[N - 1] + 9, load3(m.com[N - 1]));
+    s.C[N - 1][12] = m.mass[N - 1];
+  }
+  // (made visible by the first __syncwarp() of the substep)
+
+  bool sat[N] = {};
+  float sign[N] = {};
+  // cold pre-solve on the initial system: keeps only the active set
+  motor_substep(a, me, s, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
+#pragma unroll 1
+  for (int k = 0; k < a.n_substeps; ++k)
+    motor_substep(a, me, s, q, qd, tgt, /*cold=*/false, /*seed_only=*/false, sat, sign);
+  if (b < B && me.l < N) {
+    q_out[off + me.l] = pick(me.l, q);
+    qd_out[off + me.l] = pick(me.l, qd);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One env per thread (the kernel for batches past one wave of the lane
+// groups).  The whole chain runs in registers; the model tables are read
+// from the constant bank at addresses uniform to the warp.
+
+// skew(v) skew(v)^T
+__device__ __forceinline__ M3 skew_sq(V3 v) {
+  const V3 r0 = skew_sq_row(0, v), r1 = skew_sq_row(1, v), r2 = skew_sq_row(2, v);
+  return {{r0.x, r0.y, r0.z, r1.x, r1.y, r1.z, r2.x, r2.y, r2.z}};
+}
+__device__ __forceinline__ M3 mT(const M3& A) {
+  M3 r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) r.a[3 * i + j] = A.a[3 * j + i];
+  return r;
+}
+
 // Bias force C(q, qd) qd + G(q) by RNEA with qdd = 0 (scalarized.py:rnea).
-__device__ __forceinline__ void rnea_bias(const Model& m, const M3 (&R)[N], const V3 (&p)[N],
-                                          const float (&qd)[N], float (&tau)[N]) {
+__device__ __forceinline__ void rnea_bias(const Model& m, const M3 (&R)[N], const float (&qd)[N],
+                                          float (&tau)[N]) {
   V3 fn[N], ff[N];
   V3 om_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f};
   V3 aom_p = {0.f, 0.f, 0.f}, av_p = {0.f, 0.f, 9.81f};  // base accel = -g
 #pragma unroll
   for (int d = 0; d < N; ++d) {
+    const V3 p = load3(m.Xp[d]);
     V3 om = mtv(R[d], om_p);
-    V3 v = mtv(R[d], vadd(v_p, vcross(om_p, p[d])));
+    V3 v = mtv(R[d], vadd(v_p, vcross(om_p, p)));
     V3 aom = mtv(R[d], aom_p);
-    V3 av = mtv(R[d], vadd(av_p, vcross(aom_p, p[d])));
+    V3 av = mtv(R[d], vadd(av_p, vcross(aom_p, p)));
     const V3 vj = vscale(qd[d], load3(m.axis[d]));
     om = vadd(om, vj);
     aom = vadd(aom, vcross(om, vj));
@@ -174,53 +704,49 @@ __device__ __forceinline__ void rnea_bias(const Model& m, const M3 (&R)[N], cons
     tau[d] = vdot(load3(m.axis[d]), fn[d]);
     if (d > 0) {
       V3 n = fn[d], f = ff[d];
-      force_to_parent(R[d], p[d], n, f);
+      force_to_parent(R[d], load3(m.Xp[d]), n, f);
       fn[d - 1] = vadd(fn[d - 1], n);
       ff[d - 1] = vadd(ff[d - 1], f);
     }
   }
 }
 
-// Joint-space mass matrix by CRBA (scalarized.py:crba); fills the full matrix.
-__device__ __forceinline__ void crba(const Model& m, const M3 (&R)[N], const V3 (&p)[N],
-                                     float (&M)[N][N]) {
-  float mc[N];
+// Joint-space mass matrix by CRBA (scalarized.py:crba); fills the full
+// matrix.  The composite masses and CoM weights come folded from the host.
+__device__ __forceinline__ void crba(const Args& a, const M3 (&R)[N], float (&M)[N][N]) {
+  const Model& m = a.m;
   V3 cc[N];
   M3 Ic[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) {
-    mc[d] = m.mass[d];
     cc[d] = load3(m.com[d]);
     Ic[d] = load9(m.inertia[d]);
   }
 #pragma unroll
   for (int d = N - 1; d > 0; --d) {
     // child inertia in parent coords (scalarized.py:_inertia_to_parent)
-    const float m_c = mc[d];
-    const V3 c_p = vadd(mv(R[d], cc[d]), p[d]);
+    const float m_c = a.comp_m[d];
+    const V3 c_p = vadd(mv(R[d], cc[d]), load3(m.Xp[d]));
     const M3 sk = skew_sq(cc[d]);
     M3 I_com;
 #pragma unroll
     for (int i = 0; i < 9; ++i) I_com.a[i] = Ic[d].a[i] - m_c * sk.a[i];
     const M3 I_com_p = mm(R[d], mm(I_com, mT(R[d])));
     const M3 skp = skew_sq(c_p);
-    const float m_p = mc[d - 1];
-    const float m_t = m_p + m_c;
-    const float w = 1.0f / fmaxf(m_t, 1e-12f);
-    cc[d - 1] = vscale(w, vadd(vscale(m_p, cc[d - 1]), vscale(m_c, c_p)));
+    const float m_p = m.mass[d - 1];
+    cc[d - 1] = vscale(a.comp_w[d], vadd(vscale(m_p, cc[d - 1]), vscale(m_c, c_p)));
 #pragma unroll
     for (int i = 0; i < 9; ++i) Ic[d - 1].a[i] = Ic[d - 1].a[i] + (I_com_p.a[i] + m_c * skp.a[i]);
-    mc[d - 1] = m_t;
   }
 #pragma unroll
   for (int d = 0; d < N; ++d) {
     const V3 ax = load3(m.axis[d]);
     V3 Fn, Ff;
-    inertia_mul(mc[d], cc[d], Ic[d], ax, V3{0.f, 0.f, 0.f}, Fn, Ff);
+    inertia_mul(a.comp_m[d], cc[d], Ic[d], ax, V3{0.f, 0.f, 0.f}, Fn, Ff);
     M[d][d] = vdot(ax, Fn);
 #pragma unroll
     for (int j = d; j > 0; --j) {
-      force_to_parent(R[j], p[j], Fn, Ff);
+      force_to_parent(R[j], load3(m.Xp[j]), Fn, Ff);
       const float Mdj = vdot(load3(m.axis[j - 1]), Fn);
       M[d][j - 1] = Mdj;
       M[j - 1][d] = Mdj;
@@ -228,60 +754,16 @@ __device__ __forceinline__ void crba(const Model& m, const M3 (&R)[N], const V3 
   }
 }
 
-// Index-unrolled Cholesky solve A x = b (scalarized.py:cholesky_solve).
-__device__ __forceinline__ void cholesky_solve(const float (&A)[N][N], const float (&b)[N],
-                                               float (&x)[N]) {
-  float L[N][N];
-  float inv[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      float s = A[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
-      if (i == j) {
-        L[i][i] = sqrtf(fmaxf(s, 1e-9f));
-        inv[i] = 1.0f / L[i][i];
-      } else {
-        L[i][j] = s * inv[j];
-      }
-    }
-  }
-  float y[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = b[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s * inv[i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float s = y[i];
-#pragma unroll
-    for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
-    x[i] = s * inv[i];
-  }
-}
-
 __device__ __forceinline__ void matvec(const float (&M)[N][N], const float (&v)[N], float (&out)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = M[i][0] * v[0];
-#pragma unroll
-    for (int j = 1; j < N; ++j) s = s + M[i][j] * v[j];
-    out[i] = s;
-  }
+  for (int i = 0; i < N; ++i) out[i] = row_dot(M[i], v);
 }
 
-// One substep (scalarized.py:motor_substep).  cold: seed the active set from
-// the unconstrained pass and run cold_iters refinements; else refine the
-// carried (sat, sign) warm_iters times.  Updates q, qd unless seed_only, and
-// always returns the new (sat, sign).
-__device__ __forceinline__ void motor_substep(const Args& a, float (&q)[N], float (&qd)[N],
-                                              const float (&tgt)[N], bool cold, bool seed_only,
-                                              bool (&sat)[N], float (&sign)[N]) {
+// One substep of one env on one thread (scalarized.py:motor_substep); the
+// same steps as motor_substep above, every one on this thread.
+__device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], float (&qd)[N],
+                                               const float (&tgt)[N], bool cold, bool seed_only,
+                                               bool (&sat)[N], float (&sign)[N]) {
   const Model& m = a.m;
   float v_des[N];
 #pragma unroll
@@ -289,20 +771,19 @@ __device__ __forceinline__ void motor_substep(const Args& a, float (&q)[N], floa
     const float v = a.ctrl_mode == 0 ? a.vgain * (tgt[d] - q[d]) : tgt[d];
     v_des[d] = fminf(fmaxf(v, -m.vel_limit[d]), m.vel_limit[d]);
   }
-
   M3 R[N];
-  V3 p[N];
 #pragma unroll
-  for (int d = 0; d < N; ++d) joint_X(m, d, q[d], R[d], p[d]);
+  for (int d = 0; d < N; ++d) R[d] = joint_R(load9(m.XR[d]), load3(m.axis[d]), q[d]);
 
   float bias[N], M[N][N];
-  rnea_bias(m, R, p, qd, bias);
-  crba(m, R, p, M);
+  rnea_bias(m, R, qd, bias);
+  crba(a, R, M);
 
-  float rhs[N], fv[N];
+  float L[N][N], inv[N], rhs[N], fv[N];
+  cholesky_factor(M, L, inv);
 #pragma unroll
   for (int i = 0; i < N; ++i) rhs[i] = -bias[i];
-  cholesky_solve(M, rhs, fv);
+  cholesky_subst(L, inv, rhs, fv);
   float qd_free[N], Mqf[N];
 #pragma unroll
   for (int d = 0; d < N; ++d) qd_free[d] = qd[d] + a.dt * fv[d];
@@ -331,26 +812,19 @@ __device__ __forceinline__ void motor_substep(const Args& a, float (&q)[N], floa
   for (int i = 0; i < N; ++i) u[i] = v_des[i];
 #pragma unroll 1
   for (int it = 0; it < n_iters; ++it) {
-    // rows S (saturated): M_SS u_S = c_S + (M qd_free)_S - M_SF v_des_F
-    // rows F (free):      u_F = v_des_F
-    float A[N][N], vf[N], mvf[N];
+    float A[N][N], vf[N], mvf[N], Mu[N];
+    active_matrix(sat, M, A);
+    cholesky_factor(A, L, inv);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) A[i][j] = (sat[i] && sat[j]) ? M[i][j] : (i == j ? 1.0f : 0.0f);
-      vf[i] = sat[i] ? 0.0f : v_des[i];
-    }
+    for (int i = 0; i < N; ++i) vf[i] = sat[i] ? 0.0f : v_des[i];
     matvec(M, vf, mvf);
 #pragma unroll
     for (int i = 0; i < N; ++i) rhs[i] = sat[i] ? (c[i] + Mqf[i]) - mvf[i] : v_des[i];
-    cholesky_solve(A, rhs, u);
-    float Mu[N];
+    cholesky_subst(L, inv, rhs, u);
     matvec(M, u, Mu);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       x[i] = Mu[i] - Mqf[i];
-      // saturated stays iff the deficit still pushes into the cap; free
-      // joints whose required impulse exceeds the cap saturate
       sat[i] = sat[i] ? ((v_des[i] - u[i]) * c[i] >= 0.0f) : (fabsf(x[i]) > a.cap[i]);
       c[i] = fminf(fmaxf(x[i], -a.cap[i]), a.cap[i]);
     }
@@ -368,10 +842,10 @@ __device__ __forceinline__ void motor_substep(const Args& a, float (&q)[N], floa
   }
 }
 
-__global__ void __launch_bounds__(128)
-motor_steps_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
-                   const float* __restrict__ tgt_in, float* __restrict__ q_out,
-                   float* __restrict__ qd_out, int B, const Args a) {
+__global__ void __launch_bounds__(THREADS)
+motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
+                          const float* __restrict__ tgt_in, float* __restrict__ q_out,
+                          float* __restrict__ qd_out, int B, const Args a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const long long off = static_cast<long long>(b) * N;
@@ -384,11 +858,10 @@ motor_steps_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_
   }
   bool sat[N];
   float sign[N];
-  // cold pre-solve on the initial system: keeps only the active set
-  motor_substep(a, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
+  thread_substep(a, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
 #pragma unroll 1
-  for (int s = 0; s < a.n_substeps; ++s)
-    motor_substep(a, q, qd, tgt, /*cold=*/false, /*seed_only=*/false, sat, sign);
+  for (int k = 0; k < a.n_substeps; ++k)
+    thread_substep(a, q, qd, tgt, /*cold=*/false, /*seed_only=*/false, sat, sign);
 #pragma unroll
   for (int d = 0; d < N; ++d) {
     q_out[off + d] = q[d];
@@ -398,29 +871,43 @@ motor_steps_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_
 
 }  // namespace
 
-// C entry point, bound with ctypes by ops/cuda_dynamics.py.  Launches on the
-// caller's stream on card `device` and returns cudaGetLastError() (0 on
-// success).
+// C entry point, bound with ctypes by ops/cuda_dynamics.py.  Launches the
+// lane-group kernel (lanes_per_env 8) or the one-env-per-thread kernel
+// (lanes_per_env 1) on the caller's stream on card `device` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int motor_steps_launch(const float* q, const float* qd, const float* tgt,
                                   float* q_out, float* qd_out, int B, const float* model,
                                   int n_substeps, double dt, int ctrl_mode,
                                   double position_gain, int cold_iters, int warm_iters,
-                                  int device, void* stream) {
+                                  int device, void* stream, int lanes_per_env) {
+  if (lanes_per_env != LANES && lanes_per_env != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   Args a;
   memcpy(&a.m, model, sizeof(Model));
   for (int d = 0; d < N; ++d) a.cap[d] = static_cast<float>(dt * a.m.effort[d]);
+  // the composite masses of CRBA and their CoM weights do not depend on q:
+  // folded here in float, as the kernel would compute them
+  a.comp_m[N - 1] = a.m.mass[N - 1];
+  a.comp_w[0] = 0.0f;
+  for (int d = N - 1; d > 0; --d) {
+    a.comp_m[d - 1] = a.m.mass[d - 1] + a.comp_m[d];
+    a.comp_w[d] = 1.0f / fmaxf(a.comp_m[d - 1], 1e-12f);
+  }
   a.vgain = static_cast<float>(position_gain * (1.0 / dt));
   a.dt = static_cast<float>(dt);
   a.n_substeps = n_substeps;
   a.ctrl_mode = ctrl_mode;
   a.cold_iters = cold_iters;
   a.warm_iters = warm_iters;
-  if (B > 0) {
-    const int threads = 128;
-    const int blocks = (B + threads - 1) / threads;
-    motor_steps_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (B > 0 && lanes_per_env == LANES) {
+    const int blocks = (B + GROUPS - 1) / GROUPS;
+    motor_steps_lanes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        q, qd, tgt, q_out, qd_out, B, a);
+  } else if (B > 0) {
+    const int blocks = (B + THREADS - 1) / THREADS;
+    motor_steps_thread_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         q, qd, tgt, q_out, qd_out, B, a);
   }
   return static_cast<int>(cudaGetLastError());
@@ -428,3 +915,24 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
 
 // Number of floats the model table must hold (checked by the wrapper).
 extern "C" int motor_steps_model_floats() { return static_cast<int>(sizeof(Model) / sizeof(float)); }
+
+// What the card makes of a kernel (lanes_per_env as for the launch):
+// resident blocks per SM (the card's own occupancy query), registers per
+// thread, local memory per thread in bytes, and threads per block.  Returns a
+// cudaError_t (0 on success).
+extern "C" int motor_steps_occupancy(int device, int lanes_per_env, int* blocks_per_sm,
+                                     int* regs, int* local_bytes, int* threads) {
+  if (lanes_per_env != LANES && lanes_per_env != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto kernel = lanes_per_env == LANES ? motor_steps_lanes_kernel : motor_steps_thread_kernel;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, 0);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *threads = THREADS;
+  return static_cast<int>(e);
+}

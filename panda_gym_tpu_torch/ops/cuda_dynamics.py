@@ -9,12 +9,34 @@ for sm_90a and bound with ctypes; its plain version is
 What bounds it on the H100: per env it moves 140 bytes (q, qd, target read,
 q, qd written) and does about 82k fp32 operations per policy step, so the
 work is bound by operations (67 TFLOP/s fp32 outside the tensor cores), not
-by bytes; and those operations are one long dependent chain per env.  The
-design keeps the chain in registers: one env per thread, the cold pre-solve
-and every substep run without touching device memory, the model tables sit
-in the constant bank.  At B = 4096 that is 32 blocks of 128 threads on 132
-SMs, so the card is underfilled; spreading one env over several threads is
-work for a later change.
+by bytes; and those operations form one long chain per env.  Two kernels
+of one source do it, and the wrapper picks one from B and the card:
+
+- up to one wave of its grid (every block resident at once: 132 SMs x 2
+  blocks x 16 envs = 4,224 envs on the H100), the lane-group kernel, which
+  spreads each env over a group of 8 lanes, so that the trainer's and the
+  env step's batches fill the card (lane d owns dof d, lane 7 is spare; 16
+  envs per 128-thread block, so B = 4096 is 256 blocks on the 132 SMs and
+  the trainer's B = 512 is 32);
+- past it, the one-env-per-thread kernel: the card is full there, time
+  follows the instructions issued per env, and the lane groups issue about
+  4x as many (bench.py's B = 65536: ~0.42 ms against ~2.2 ms on the H100).
+
+In the lane-group kernel the joint frames, the links' own RNEA
+forces, the CRBA columns and the rows of the LCP's matrix-vector products
+are split by dof; the RNEA motion sweep by vector and the CRBA
+composite-inertia sweep by 3x3 row, interleaved; the two Cholesky
+factorizations of a warm substep run side by side on lanes 0-3 and 4-7;
+the RNEA force sweep, the substitutions and the active-set update run alike
+on every lane.  Every scalar keeps the plain version's order of operations.
+The lanes exchange through shared memory behind ``__syncwarp()``;
+constants that differ by lane are picked into registers at kernel start,
+and the lanes of a missing env in the ragged last block compute on a
+clamped index with their stores masked.  The source note of
+``csrc/motor_steps.cu`` has the details.  The choice is made from B and
+what the card reports (its SM count and the occupancy query), never by an
+option; ``launch`` runs a named kernel at any B, so that each can be held
+against the plain version.
 
 Same contract as make_batched_motor_steps: (B, ndof) in, (B, ndof) out.  A
 CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
@@ -35,6 +57,8 @@ from panda_gym_tpu_torch.ops import scalarized as S
 
 NDOF = 7
 KERNEL = "motor_steps"
+# lanes per env of the two kernels: the lane-group kernel, one env per thread
+LANES, THREAD = 8, 1
 
 
 def pack_model(model: ChainModel) -> np.ndarray:
@@ -51,16 +75,51 @@ def _bind(lib: ctypes.CDLL):
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p])
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
     fn.restype = ctypes.c_int
     lib.motor_steps_model_floats.restype = ctypes.c_int
+    lib.motor_steps_occupancy.argtypes = ([ctypes.c_int] * 2
+                                          + [ctypes.POINTER(ctypes.c_int)] * 4)
+    lib.motor_steps_occupancy.restype = ctypes.c_int
     return fn
+
+
+def occupancy(device_index: int = 0, lanes_per_env: int = LANES) -> dict:
+    """What the card makes of one of K1's kernels: resident blocks per SM
+    (the CUDA occupancy query), registers per thread, local memory per
+    thread (spill and stack, bytes) and threads per block."""
+    lib = _build.load(KERNEL)
+    _bind(lib)
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = lib.motor_steps_occupancy(device_index, lanes_per_env,
+                                    *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
+    blocks, regs, local, threads = (v.value for v in vals)
+    return {"blocks_per_sm": blocks, "regs": regs, "local_bytes": local,
+            "threads_per_block": threads,
+            "warps_per_sm": blocks * threads // 32}
+
+
+_WAVE: dict = {}
+
+
+def lanes_wave(device_index: int) -> int:
+    """Envs that one wave of the lane-group kernel holds on the card: its
+    resident blocks per SM times the SMs times 16 envs per block."""
+    if device_index not in _WAVE:
+        occ = occupancy(device_index, LANES)
+        sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+        _WAVE[device_index] = (sms * occ["blocks_per_sm"]
+                               * occ["threads_per_block"] // LANES)
+    return _WAVE[device_index]
 
 
 class CudaMotorSteps:
     """K1 wrapper: ``(q, qd, target) -> (q, qd)`` after ``n_substeps``.
 
-    ``launches`` counts kernel launches, and nothing else."""
+    ``launches`` counts kernel launches, and nothing else;
+    ``kernel_launches`` splits them by kernel (``LANES``, ``THREAD``)."""
 
     def __init__(self, model: ChainModel, *, n_substeps: int, dt: float,
                  ctrl_mode: int):
@@ -78,8 +137,19 @@ class CudaMotorSteps:
         self._table = pack_model(model)
         self._fn = None
         self.launches = 0
+        self.kernel_launches = {LANES: 0, THREAD: 0}
 
     def __call__(self, q, qd, target):
+        past_wave = (q.device.type == "cuda"
+                     and q.shape[0] > lanes_wave(q.device.index))
+        return self.launch(q, qd, target, THREAD if past_wave else LANES)
+
+    def launch(self, q, qd, target, lanes_per_env):
+        """Run the kernel with ``lanes_per_env`` (``LANES`` or ``THREAD``)
+        whatever B is; a CPU tensor takes the plain version."""
+        if lanes_per_env not in (LANES, THREAD):
+            raise ValueError(f"lanes_per_env is {LANES} or {THREAD}, "
+                             f"got {lanes_per_env}")
         if q.device.type == "cpu":
             return self.plain(q, qd, target)
         if q.device.type != "cuda":
@@ -108,10 +178,11 @@ class CudaMotorSteps:
             q_out.data_ptr(), qd_out.data_ptr(), q.shape[0],
             self._table.ctypes.data, self.n_substeps, self.dt,
             self.ctrl_mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
-            D.MOTOR_LCP_WARM_ITERS, q.device.index, stream)
+            D.MOTOR_LCP_WARM_ITERS, q.device.index, stream, lanes_per_env)
         if err != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {err}")
         self.launches += 1
+        self.kernel_launches[lanes_per_env] += 1
         return q_out, qd_out
 
 

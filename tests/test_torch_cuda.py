@@ -42,18 +42,37 @@ def _inputs(model, B, mode, seed, device):
             for a in (q, qd, tgt)]
 
 
+@pytest.mark.parametrize("lanes", [CD.LANES, CD.THREAD],
+                         ids=["lanes", "thread"])
 @pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
-@pytest.mark.parametrize("B", [24, 1000])
-def test_k1_matches_plain(card, mode, B):
+# a lone env, and ragged last blocks of 16 envs (24, 1000, 4100) and of 128
+@pytest.mark.parametrize("B", [1, 24, 1000, 4100])
+def test_k1_matches_plain(card, mode, B, lanes):
     model = make_panda_model()
     k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=DT, ctrl_mode=mode)
     args = _inputs(model, B, mode, 11, card)
-    qk, qdk = k1(*args)
+    qk, qdk = k1.launch(*args, lanes)
     qp, qdp = k1.plain(*args)
     torch.cuda.synchronize()
     assert k1.launches == 1
+    assert k1.kernel_launches[lanes] == 1
     assert (qk - qp).abs().max().item() <= ATOL_Q
     assert (qdk - qdp).abs().max().item() <= ATOL_QD
+
+
+def test_k1_picks_kernel_from_batch(card):
+    """The lane-group kernel up to one wave of its grid, one env per thread
+    past it."""
+    wave = CD.lanes_wave(card.index)
+    occ = CD.occupancy(card.index, CD.LANES)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert wave == sms * occ["blocks_per_sm"] * 16
+    k1 = CD.make_cuda_motor_steps(make_panda_model(), n_substeps=1, dt=DT,
+                                  ctrl_mode=0)
+    for B in (1, wave, wave + 1):
+        k1(*_inputs(make_panda_model(), B, 0, 3, card))
+    torch.cuda.synchronize()
+    assert k1.kernel_launches == {CD.LANES: 2, CD.THREAD: 1}
 
 
 def test_k1_checks_its_inputs(card):

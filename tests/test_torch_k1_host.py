@@ -2,14 +2,18 @@
 
 There is no CUDA compiler or card here, so ``motor_steps.cu`` is compiled
 with the host C++ compiler: a stub header turns the CUDA qualifiers into
-plain C++ and the launch into a loop that runs the kernel body once per
-(block, thread).  This holds the kernel's arithmetic (RNEA, CRBA, Cholesky,
-the active-set LCP, the warm start, the ragged last block) against
+plain C++ and the launch into a loop over blocks that runs every thread of
+a block at once as a std::thread, the 8 lanes of an env's group meeting at
+a barrier for each ``__syncwarp()``.  This holds the kernel's arithmetic
+(RNEA, CRBA, Cholesky, the active-set LCP, the warm start) and its lane
+exchange (the scratch slots, the syncs, the masked groups of a ragged
+last block) against
 ops/scalarized.py on the CPU, at the tests/test_dynamics.py:295-296
 tolerances.  It says nothing about how the card compiles or runs it: that
 is chip_smoke.py's and tests/test_torch_cuda.py's work.
 """
 import ctypes
+import re
 import shutil
 import subprocess
 
@@ -27,25 +31,57 @@ ATOL_Q, ATOL_QD = 2e-5, 2e-3
 STUB = """
 #pragma once
 #include <math.h>
+#include <barrier>
+#include <memory>
+#include <thread>
+#include <vector>
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) alignas(n)
 struct Dim3Stub { int x; };
-static Dim3Stub blockIdx, blockDim, threadIdx;
+static thread_local Dim3Stub blockIdx, blockDim, threadIdx;
+static thread_local std::barrier<>* lane_group;
+inline void __syncwarp(unsigned = 0xffffffffu) { lane_group->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 static const int cudaSuccess = 0;
+static const int cudaErrorInvalidValue = 1;
 inline int cudaGetLastError() { return 0; }
 inline int cudaSetDevice(int) { return 0; }
+struct cudaFuncAttributes { int numRegs; unsigned long localSizeBytes; };
+template <class F> int cudaFuncGetAttributes(cudaFuncAttributes*, F) { return 1; }
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, F, int, unsigned long) { return 1; }
+// The blocks run one after another; every thread of a block runs at once
+// as a std::thread, and the 8 lanes of a group meet at one barrier per
+// __syncwarp(), so a lane that reads a slot before its owner has written it,
+// or a group whose lanes reach different numbers of __syncwarp(), shows.
+template <class F>
+void host_launch(int blocks, int threads, F body) {
+  for (int bb = 0; bb < blocks; ++bb) {
+    std::vector<std::unique_ptr<std::barrier<>>> groups;
+    for (int g = 0; g < threads / 8; ++g)
+      groups.emplace_back(new std::barrier<>(8));
+    std::vector<std::thread> lanes;
+    for (int tt = 0; tt < threads; ++tt)
+      lanes.emplace_back([&, tt] {
+        blockIdx.x = bb, blockDim.x = threads, threadIdx.x = tt;
+        lane_group = groups[tt / 8].get();
+        body();
+      });
+    for (auto& t : lanes) t.join();
+  }
+}
 """
-LAUNCH = ("motor_steps_kernel<<<blocks, threads, 0, "
-          "static_cast<cudaStream_t>(stream)>>>(")
-HOST_LOOP = ("for (int bb = 0; bb < blocks; ++bb) "
-             "for (int tt = 0; tt < threads; ++tt) "
-             "blockIdx.x = bb, threadIdx.x = tt, blockDim.x = threads, "
-             "motor_steps_kernel(")
+# the two launch statements, and what runs them on the host
+LAUNCH = re.compile(r"(motor_steps_\w+_kernel)<<<(\w+), (\w+), 0, "
+                    r"static_cast<cudaStream_t>\(stream\)>>>\((.*?)\);",
+                    re.DOTALL)
+HOST_LAUNCH = r"host_launch(\2, \3, [&] { \1(\4); });"
 
 
 @pytest.fixture(scope="module")
@@ -55,22 +91,27 @@ def host_k1(tmp_path_factory):
         pytest.skip("needs a host C++ compiler")
     d = tmp_path_factory.mktemp("k1_host")
     src = (_build.CSRC / "motor_steps.cu").read_text()
-    assert src.count(LAUNCH) == 1
+    host_src, n = LAUNCH.subn(HOST_LAUNCH, src)
+    assert n == 2
     (d / "cuda_runtime.h").write_text(STUB)
-    (d / "k1.cpp").write_text(src.replace(LAUNCH, HOST_LOOP))
+    (d / "k1.cpp").write_text(host_src)
     lib = d / "libk1_host.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-I", str(d), "-o", str(lib), str(d / "k1.cpp")],
+    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
+                    "-shared", "-fPIC", "-I", str(d), "-o", str(lib),
+                    str(d / "k1.cpp")],
                    check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
 
 
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
 @pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
-def test_k1_source_matches_plain(host_k1, mode):
+# 1: a lone env in a block of masked groups; 260: 17 blocks of 16 envs (3
+# blocks of 128 for one env per thread), the last one ragged
+@pytest.mark.parametrize("B", [1, 260])
+def test_k1_source_matches_plain(host_k1, mode, B, lanes):
     model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
     fn = CD._bind(host_k1)
     assert host_k1.motor_steps_model_floats() == CD.pack_model(model).size
-    B = 260  # three blocks, the last one ragged
     rng = np.random.default_rng(7 + mode)
     q = rng.uniform(model.q_lo, model.q_hi, (B, 7)).astype(np.float32)
     qd = rng.normal(0, 0.5, (B, 7)).astype(np.float32)
@@ -82,7 +123,7 @@ def test_k1_source_matches_plain(host_k1, mode):
     err = fn(q.ctypes.data, qd.ctypes.data, tgt.ctypes.data,
              q_out.ctypes.data, qd_out.ctypes.data, B, table.ctypes.data,
              20, 1.0 / 500.0, mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
-             D.MOTOR_LCP_WARM_ITERS, 0, None)
+             D.MOTOR_LCP_WARM_ITERS, 0, None, lanes)
     assert err == 0
     k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=1.0 / 500.0,
                                   ctrl_mode=mode)
