@@ -25,7 +25,9 @@ _CORE_FACTORIES = {
 
 
 def make_core(task: str, **kw) -> RobotTaskEnv:
-    """Only "reach" is ported; the other tasks follow the ROADMAP."""
+    """Only "reach" is ported; the other tasks follow the ROADMAP.  As in
+    the JAX package, ReachAO is built by
+    envs/tasks/reach_ao.py::make_reach_ao_core, not here."""
     name = task.lower()
     if name not in _CORE_FACTORIES:
         raise NotImplementedError(f"task {task!r} is not ported yet")

@@ -100,14 +100,28 @@ class ChainModel:
         default_factory=dict, init=False, repr=False)
 
     def tensors(self, device) -> Dict[str, torch.Tensor]:
-        """float32 torch copies of the float tables on ``device`` (cached)."""
+        """torch copies of the model's tables on ``device`` (cached): the
+        float tables in float32, and the capsules' body and group indices."""
         key = str(torch.device(device))
         if key not in self._tensors:
             self._tensors[key] = {
                 k: torch.as_tensor(np.asarray(getattr(self, k), np.float32),
                                    device=device)
                 for k in ("X_R", "X_p", "axis", "site_R", "site_p",
-                          "site_com", "base_pos", "q_lo", "q_hi")}
+                          "site_com", "base_pos", "q_lo", "q_hi",
+                          "cap_p0", "cap_p1", "cap_radius")}
+            # capsule -> body (0 for the base, masked by cap_on_body) and
+            # capsule -> group (ngroup for the capsules of no group)
+            self._tensors[key].update(
+                cap_body_index=torch.as_tensor(
+                    np.maximum(self.cap_body, 0).astype(np.int64),
+                    device=device),
+                cap_on_body=torch.as_tensor(self.cap_body >= 0,
+                                            device=device),
+                cap_group_index=torch.as_tensor(
+                    np.where(self.cap_group < 0, self.ngroup,
+                             self.cap_group).astype(np.int64),
+                    device=device))
         return self._tensors[key]
 
 

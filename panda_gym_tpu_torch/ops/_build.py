@@ -60,8 +60,10 @@ def load(name: str) -> ctypes.CDLL:
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         try:
+            # run in the build directory, so that no header in the
+            # caller's working directory shadows the toolkit's
             res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=BUILD_TIMEOUT_S)
+                                 timeout=BUILD_TIMEOUT_S, cwd=BUILD_DIR)
         except subprocess.TimeoutExpired as e:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(

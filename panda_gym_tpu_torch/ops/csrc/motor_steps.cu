@@ -3,14 +3,16 @@
 //
 // Replaces panda_gym_tpu/ops/pallas_dynamics.py::make_pallas_motor_steps
 // (the only pl.pallas_call of the JAX package).  Computes what
-// ops/scalarized.py::make_batched_motor_steps computes, warm path:
+// ops/scalarized.py::make_batched_motor_steps computes:
 //   (q, qd, target) -> (q, qd) after n_substeps of PyBullet-motor dynamics.
 // Per substep: v_des from the position servo (or the velocity target),
 // clamped to vel_limit; RNEA bias; CRBA mass matrix; Cholesky free-velocity
 // solve; masked active-set refinements of the motor box-LCP with impulse
 // caps effort*dt; semi-implicit Euler; joint-limit clamp that zeroes qd.
-// One cold pre-solve seeds the active set (sat, sign); every substep then
-// runs the warm refinements.  Like the TPU kernel this always warm-starts.
+// Warm (the TPU kernel's way, and the default): one cold pre-solve seeds
+// the active set (sat, sign); every substep then runs the warm refinements.
+// Cold (the reference's ReachAO collision step, which launches one substep
+// at a time): every substep solves from its own unconstrained pass.
 //
 // What bounds it: per env it reads 3x7 and writes 2x7 floats (140 B) and
 // does ~82k fp32 operations per policy step, so it is bound by operations,
@@ -128,6 +130,7 @@ struct Args {
   int ctrl_mode;       // 0 position, 1 velocity
   int cold_iters;
   int warm_iters;
+  int warm;            // 1: seed once, refine warm; 0: every substep cold
 };
 
 // One group's scratch in shared memory.  Slots are indexed by lane (lane 7
@@ -642,11 +645,12 @@ motor_steps_lanes_kernel(const float* __restrict__ q_in, const float* __restrict
 
   bool sat[N] = {};
   float sign[N] = {};
-  // cold pre-solve on the initial system: keeps only the active set
-  motor_substep(a, me, s, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
+  // warm: a cold pre-solve on the initial system keeps only the active set
+  if (a.warm)
+    motor_substep(a, me, s, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
 #pragma unroll 1
   for (int k = 0; k < a.n_substeps; ++k)
-    motor_substep(a, me, s, q, qd, tgt, /*cold=*/false, /*seed_only=*/false, sat, sign);
+    motor_substep(a, me, s, q, qd, tgt, /*cold=*/!a.warm, /*seed_only=*/false, sat, sign);
   if (b < B && me.l < N) {
     q_out[off + me.l] = pick(me.l, q);
     qd_out[off + me.l] = pick(me.l, qd);
@@ -858,10 +862,11 @@ motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restric
   }
   bool sat[N];
   float sign[N];
-  thread_substep(a, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
+  if (a.warm)
+    thread_substep(a, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
 #pragma unroll 1
   for (int k = 0; k < a.n_substeps; ++k)
-    thread_substep(a, q, qd, tgt, /*cold=*/false, /*seed_only=*/false, sat, sign);
+    thread_substep(a, q, qd, tgt, /*cold=*/!a.warm, /*seed_only=*/false, sat, sign);
 #pragma unroll
   for (int d = 0; d < N; ++d) {
     q_out[off + d] = q[d];
@@ -873,13 +878,13 @@ motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restric
 
 // C entry point, bound with ctypes by ops/cuda_dynamics.py.  Launches the
 // lane-group kernel (lanes_per_env 8) or the one-env-per-thread kernel
-// (lanes_per_env 1) on the caller's stream on card `device` and returns
-// cudaGetLastError() (0 on success).
+// (lanes_per_env 1), warm-started (warm 1) or cold (warm 0), on the caller's
+// stream on card `device` and returns cudaGetLastError() (0 on success).
 extern "C" int motor_steps_launch(const float* q, const float* qd, const float* tgt,
                                   float* q_out, float* qd_out, int B, const float* model,
                                   int n_substeps, double dt, int ctrl_mode,
                                   double position_gain, int cold_iters, int warm_iters,
-                                  int device, void* stream, int lanes_per_env) {
+                                  int device, void* stream, int lanes_per_env, int warm) {
   if (lanes_per_env != LANES && lanes_per_env != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
@@ -901,6 +906,7 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
   a.ctrl_mode = ctrl_mode;
   a.cold_iters = cold_iters;
   a.warm_iters = warm_iters;
+  a.warm = warm;
   if (B > 0 && lanes_per_env == LANES) {
     const int blocks = (B + GROUPS - 1) / GROUPS;
     motor_steps_lanes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -38,10 +38,13 @@ what the card reports (its SM count and the occupancy query), never by an
 option; ``launch`` runs a named kernel at any B, so that each can be held
 against the plain version.
 
-Same contract as make_batched_motor_steps: (B, ndof) in, (B, ndof) out.  A
-CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version.  Like the TPU kernel, K1 always warm-starts the motor LCP and
-ignores PANDA_LCP_WARM, which the plain version honours.
+Same contract as make_batched_motor_steps: (B, ndof) in, (B, ndof) out,
+and ``warm_start`` as there, but always given by the caller.  Warm (the TPU
+kernel's only way; the Reach step) seeds the motor LCP's active set with
+one cold solve and refines it warm in every substep; cold solves every
+substep from scratch, as the reference's ReachAO collision step does (it
+launches K1 once per substep).  A CUDA tensor launches the kernel or
+raises; a CPU tensor takes the plain version.
 """
 from __future__ import annotations
 
@@ -75,7 +78,7 @@ def _bind(lib: ctypes.CDLL):
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
     fn.restype = ctypes.c_int
     lib.motor_steps_model_floats.restype = ctypes.c_int
     lib.motor_steps_occupancy.argtypes = ([ctypes.c_int] * 2
@@ -122,7 +125,7 @@ class CudaMotorSteps:
     ``kernel_launches`` splits them by kernel (``LANES``, ``THREAD``)."""
 
     def __init__(self, model: ChainModel, *, n_substeps: int, dt: float,
-                 ctrl_mode: int):
+                 ctrl_mode: int, warm_start: bool):
         if (model.ndof != NDOF
                 or model.parent_tuple != tuple(range(-1, NDOF - 1))
                 or any(t != JOINT_REVOLUTE for t in model.jtype_tuple)):
@@ -132,8 +135,10 @@ class CudaMotorSteps:
         self.n_substeps = int(n_substeps)
         self.dt = float(dt)
         self.ctrl_mode = int(ctrl_mode)
+        self.warm_start = bool(warm_start)
         self.plain = S.make_batched_motor_steps(
-            model, n_substeps=n_substeps, dt=dt, ctrl_mode=ctrl_mode)
+            model, n_substeps=n_substeps, dt=dt, ctrl_mode=ctrl_mode,
+            warm_start=self.warm_start)
         self._table = pack_model(model)
         self._fn = None
         self.launches = 0
@@ -178,7 +183,8 @@ class CudaMotorSteps:
             q_out.data_ptr(), qd_out.data_ptr(), q.shape[0],
             self._table.ctypes.data, self.n_substeps, self.dt,
             self.ctrl_mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
-            D.MOTOR_LCP_WARM_ITERS, q.device.index, stream, lanes_per_env)
+            D.MOTOR_LCP_WARM_ITERS, q.device.index, stream, lanes_per_env,
+            int(self.warm_start))
         if err != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {err}")
         self.launches += 1
@@ -187,7 +193,8 @@ class CudaMotorSteps:
 
 
 def make_cuda_motor_steps(model: ChainModel, *, n_substeps: int, dt: float,
-                          ctrl_mode: int) -> CudaMotorSteps:
+                          ctrl_mode: int, warm_start: bool
+                          ) -> CudaMotorSteps:
     """Same contract as scalarized.make_batched_motor_steps."""
     return CudaMotorSteps(model, n_substeps=n_substeps, dt=dt,
-                          ctrl_mode=ctrl_mode)
+                          ctrl_mode=ctrl_mode, warm_start=warm_start)

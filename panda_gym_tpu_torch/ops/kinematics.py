@@ -30,9 +30,8 @@ class FK(NamedTuple):
 
 def fk_world(model: ChainModel, q, qd=None) -> FK:
     """Forward position (and optional velocity) kinematics, world frame.
-    q, qd: (B, ndof)."""
-    if qd is None:
-        qd = torch.zeros_like(q)
+    q, qd: (B, ndof).  Without qd every body is at rest: the velocities
+    are zeros and are not computed."""
     T = model.tensors(q.device)
     B = q.shape[0]
     eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(B, 3, 3)
@@ -48,18 +47,22 @@ def fk_world(model: ChainModel, q, qd=None) -> FK:
         R_f = R_par @ T["X_R"][d]
         p_f = R_par @ T["X_p"][d] + p_par
         a_w = R_f @ T["axis"][d]
-        qd_d = qd[:, d:d + 1]
-        if model.jtype_tuple[d] == JOINT_REVOLUTE:
+        revolute = model.jtype_tuple[d] == JOINT_REVOLUTE
+        if revolute:
             R_b = R_f @ axis_angle_mat(model.axis[d], torch.cos(q[:, d]),
                                        torch.sin(q[:, d]))
             p_b = p_f
-            om_b = om_par + a_w * qd_d
-            v_b = v_par + torch.linalg.cross(om_par, p_b - p_par)
         else:
             R_b = R_f
             p_b = p_f + a_w * q[:, d:d + 1]
-            om_b = om_par
-            v_b = v_par + torch.linalg.cross(om_par, p_b - p_par) + a_w * qd_d
+        if qd is None:
+            om_b, v_b = zero, zero
+        else:
+            qd_d = qd[:, d:d + 1]
+            om_b = om_par + a_w * qd_d if revolute else om_par
+            v_b = v_par + torch.linalg.cross(om_par, p_b - p_par)
+            if not revolute:
+                v_b = v_b + a_w * qd_d
         Rs.append(R_b)
         ps.append(p_b)
         as_.append(a_w)
@@ -99,3 +102,19 @@ def site_com_velocity(model: ChainModel, fk: FK, s: int):
     _, p_b, om_b, v_b = _site_base(model, fk, s)
     x = site_com_position(model, fk, s)
     return v_b + torch.linalg.cross(om_b, x - p_b)
+
+
+def capsule_endpoints_world(model: ChainModel, fk: FK):
+    """World endpoints of every collision capsule: (B, ncap, 3) x2."""
+    T = model.tensors(fk.p.device)
+    # gather body frames; a capsule on no body sits on the base
+    on_body = T["cap_on_body"]
+    eye = torch.eye(3, dtype=fk.p.dtype, device=fk.p.device)
+    R_b = torch.where(on_body[:, None, None], fk.R[:, T["cap_body_index"]],
+                      eye)
+    p_b = torch.where(on_body[:, None], fk.p[:, T["cap_body_index"]],
+                      T["base_pos"])
+    # R_b @ p as a sum of products: no matrix product, so no TF32
+    p0 = (R_b * T["cap_p0"][:, None, :]).sum(-1) + p_b
+    p1 = (R_b * T["cap_p1"][:, None, :]).sum(-1) + p_b
+    return p0, p1

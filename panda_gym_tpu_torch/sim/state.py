@@ -22,6 +22,15 @@ SHAPE_BOX = 0
 SHAPE_SPHERE = 1
 SHAPE_CYLINDER = 2
 
+# obstacle shapes (ReachAO)
+OBS_SPHERE = 0
+OBS_BOX = 1
+
+# Bullet's default convex collision margin: getClosestPoints yields no points
+# for penetrations deeper than this, so the reference's collision checks are
+# blind to them (sim/engine.py::group_obstacle_distances).
+DEEP_PENETRATION_BLIND = 0.04
+
 
 @dataclass(frozen=True)
 class SceneParams:

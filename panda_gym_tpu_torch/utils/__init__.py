@@ -13,3 +13,10 @@ def distance(a, b):
 def angle_distance(a, b):
     """Quaternion geodesic distance 1 - <a,b>^2 (utils.py:19-31)."""
     return 1.0 - torch.sum(a * b, dim=-1) ** 2
+
+
+def unit_vector(a, b):
+    """Unit vector from a to b, 0 where they coincide (utils.py:33-35)."""
+    v = b - a
+    n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return torch.where(n > 0, v / torch.where(n > 0, n, 1.0), 0.0)

@@ -1,5 +1,5 @@
 """Card-only tests of the PyTorch port: kernel K1 against its plain version
-and the batched Reach env on the card.
+and the batched Reach and ReachAO envs on the card.
 
 Run on a machine with an NVIDIA card (tests/conftest.py imports JAX, which
 such a machine need not have, so it is skipped):
@@ -14,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from panda_gym_tpu_torch.envs.core import _hi_prec
 from panda_gym_tpu_torch.envs.panda_tasks import make_core
+from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
 from panda_gym_tpu_torch.models.panda import make_panda_model
 from panda_gym_tpu_torch.ops import cuda_dynamics as CD
+from panda_gym_tpu_torch.ops import dynamics as D
 
 pytestmark = pytest.mark.cuda
 
@@ -49,7 +52,8 @@ def _inputs(model, B, mode, seed, device):
 @pytest.mark.parametrize("B", [1, 24, 1000, 4100])
 def test_k1_matches_plain(card, mode, B, lanes):
     model = make_panda_model()
-    k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=DT, ctrl_mode=mode)
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=DT, ctrl_mode=mode,
+                                  warm_start=True)
     args = _inputs(model, B, mode, 11, card)
     qk, qdk = k1.launch(*args, lanes)
     qp, qdp = k1.plain(*args)
@@ -68,7 +72,7 @@ def test_k1_picks_kernel_from_batch(card):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert wave == sms * occ["blocks_per_sm"] * 16
     k1 = CD.make_cuda_motor_steps(make_panda_model(), n_substeps=1, dt=DT,
-                                  ctrl_mode=0)
+                                  ctrl_mode=0, warm_start=True)
     for B in (1, wave, wave + 1):
         k1(*_inputs(make_panda_model(), B, 0, 3, card))
     torch.cuda.synchronize()
@@ -77,7 +81,7 @@ def test_k1_picks_kernel_from_batch(card):
 
 def test_k1_checks_its_inputs(card):
     k1 = CD.make_cuda_motor_steps(make_panda_model(), n_substeps=1, dt=DT,
-                                  ctrl_mode=0)
+                                  ctrl_mode=0, warm_start=True)
     good = torch.zeros(8, 7, device=card)
     for bad in (good.double(), torch.zeros(8, 6, device=card),
                 torch.zeros(7, 8, device=card).T):
@@ -106,3 +110,53 @@ def test_reach_on_card_matches_cpu(card):
         np.testing.assert_allclose(obs["observation"].cpu().numpy(),
                                    obs_c["observation"].numpy(), atol=2e-4)
     assert env_g.physics_step_batched.motor.launches == 2
+
+
+@pytest.mark.parametrize("cold", [True, False], ids=["cold", "warm"])
+@pytest.mark.parametrize("lanes", [CD.LANES, CD.THREAD],
+                         ids=["lanes", "thread"])
+def test_k1_one_substep_matches_plain(card, lanes, cold):
+    """n_substeps=1, as the ReachAO collision step launches K1."""
+    model = make_panda_model()
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=not cold)
+    args = _inputs(model, 1000, 0, 5, card)
+    qk, qdk = k1.launch(*args, lanes)
+    qp, qdp = k1.plain(*args)
+    assert (qk - qp).abs().max().item() <= ATOL_Q
+    assert (qdk - qdp).abs().max().item() <= ATOL_QD
+
+
+def test_reach_ao_step_k1_route_matches_plain(card):
+    """One ReachAO policy step of the collision physics on the card: K1 once
+    per substep against the plain cold substep, from the same states."""
+    env = make_reach_ao_core("reachao2")
+    gen = torch.Generator(card).manual_seed(0)
+    states, obs = env.batched_reset(256, gen)
+    opos = states.obstacle_pos.clone()
+    opos[:4, 0] = obs["achieved_goal"][:4]       # collide in substep 1
+    states = _hi_prec(env.robot.set_action)(
+        states.replace(obstacle_pos=opos),
+        torch.rand(256, 7, generator=gen, device=card) * 2 - 1)
+    phys = env.physics_step_batched
+    out_k = phys(states)
+    out_p = phys(states, phys.plain_substep_step)
+    assert phys.motor.launches == 20
+    assert (out_k.q - out_p.q).abs().max().item() <= ATOL_Q
+    assert (out_k.qd - out_p.qd).abs().max().item() <= ATOL_QD
+    assert ((out_k.link_obstacle_dist - out_p.link_obstacle_dist).abs().max()
+            .item() <= 1e-4)
+    assert torch.equal(out_k.is_collided, out_p.is_collided)
+    assert out_k.is_collided[:4].all()
+
+
+def test_reach_ao_warm_on_card_raises(card, monkeypatch):
+    """K1 cannot carry the warm active set across its one-substep launches,
+    so the collision step refuses to run warm on the card."""
+    monkeypatch.setenv("PANDA_LCP_WARM", "1")
+    monkeypatch.setattr(D, "LCP_WARM_START", True)
+    env = make_reach_ao_core("reachao1")
+    states, _ = env.batched_reset(8, torch.Generator(card).manual_seed(0))
+    with pytest.raises(NotImplementedError):
+        env.batched_step(states, torch.zeros(8, 7, device=card))
+    assert env.physics_step_batched.motor.launches == 0

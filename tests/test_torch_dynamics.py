@@ -152,7 +152,8 @@ def test_batched_motor_steps_match_jax(models, inputs, mode, warm):
 def test_k1_wrapper_on_cpu_takes_plain_path(models, inputs, mode):
     _, tm = models
     q, qd, tgts = inputs
-    k1 = CD.make_cuda_motor_steps(tm, n_substeps=N_SUB, dt=DT, ctrl_mode=mode)
+    k1 = CD.make_cuda_motor_steps(tm, n_substeps=N_SUB, dt=DT, ctrl_mode=mode,
+                                  warm_start=True)
     plain = TS.make_batched_motor_steps(tm, n_substeps=N_SUB, dt=DT,
                                         ctrl_mode=mode)
     args = _t(q, qd, tgts[mode])
@@ -165,14 +166,15 @@ def test_k1_wrapper_on_cpu_takes_plain_path(models, inputs, mode):
 def test_k1_wrapper_rejects_what_it_cannot_launch(models):
     _, tm = models
     k1 = CD.make_cuda_motor_steps(tm, n_substeps=1, dt=DT,
-                                  ctrl_mode=TS.CTRL_POSITION)
+                                  ctrl_mode=TS.CTRL_POSITION, warm_start=True)
     meta = torch.empty(4, 7, device="meta")
     with pytest.raises(ValueError):
         k1(meta, meta, meta)
     assert k1.launches == 0
     with pytest.raises(NotImplementedError):
         CD.make_cuda_motor_steps(torch_make_panda(gripper="prismatic"),
-                                 n_substeps=1, dt=DT, ctrl_mode=0)
+                                 n_substeps=1, dt=DT, ctrl_mode=0,
+                                 warm_start=True)
 
 
 def test_pack_model_matches_kernel_layout(models):

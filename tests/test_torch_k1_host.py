@@ -103,13 +103,10 @@ def host_k1(tmp_path_factory):
     return ctypes.CDLL(str(lib))
 
 
-@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
-@pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
-# 1: a lone env in a block of masked groups; 260: 17 blocks of 16 envs (3
-# blocks of 128 for one env per thread), the last one ragged
-@pytest.mark.parametrize("B", [1, 260])
-def test_k1_source_matches_plain(host_k1, mode, B, lanes):
-    model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
+def _hold(host_k1, mode, B, lanes, n_substeps, base, warm=True):
+    """Run the host build of K1 and the plain version on one seeded batch
+    and hold the two within the tolerances."""
+    model = make_panda_model(base_position=base)
     fn = CD._bind(host_k1)
     assert host_k1.motor_steps_model_floats() == CD.pack_model(model).size
     rng = np.random.default_rng(7 + mode)
@@ -122,11 +119,64 @@ def test_k1_source_matches_plain(host_k1, mode, B, lanes):
     table = CD.pack_model(model)
     err = fn(q.ctypes.data, qd.ctypes.data, tgt.ctypes.data,
              q_out.ctypes.data, qd_out.ctypes.data, B, table.ctypes.data,
-             20, 1.0 / 500.0, mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
-             D.MOTOR_LCP_WARM_ITERS, 0, None, lanes)
+             n_substeps, 1.0 / 500.0, mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
+             D.MOTOR_LCP_WARM_ITERS, 0, None, lanes, int(warm))
     assert err == 0
-    k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=1.0 / 500.0,
-                                  ctrl_mode=mode)
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=n_substeps,
+                                  dt=1.0 / 500.0, ctrl_mode=mode,
+                                  warm_start=warm)
     pq, pqd = k1.plain(*map(torch.as_tensor, (q, qd, tgt)))
     np.testing.assert_allclose(q_out, pq.numpy(), atol=ATOL_Q)
     np.testing.assert_allclose(qd_out, pqd.numpy(), atol=ATOL_QD)
+
+
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
+@pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
+# 1: a lone env in a block of masked groups; 260: 17 blocks of 16 envs (3
+# blocks of 128 for one env per thread), the last one ragged
+@pytest.mark.parametrize("B", [1, 260])
+def test_k1_source_matches_plain(host_k1, mode, B, lanes):
+    _hold(host_k1, mode, B, lanes, 20, (-0.6, 0.0, 0.0))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
+@pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
+@pytest.mark.parametrize("B", [1, 260])
+def test_k1_one_substep_matches_plain(host_k1, mode, B, lanes, warm):
+    """n_substeps=1, as the ReachAO collision step launches K1 once per
+    substep (cold by default there), with ReachAO's base at the origin."""
+    _hold(host_k1, mode, B, lanes, 1, (0.0, 0.0, 0.0), warm)
+
+
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
+def test_k1_cold_substeps_match_plain(host_k1, lanes):
+    """Five cold substeps in one launch."""
+    _hold(host_k1, 0, 260, lanes, 5, (0.0, 0.0, 0.0), warm=False)
+
+
+def test_nvcc_runs_in_the_build_directory(tmp_path, monkeypatch):
+    """A header in the caller's working directory must not shadow the
+    toolkit's: nvcc runs with the build directory as its cwd."""
+    caller = tmp_path / "caller"
+    caller.mkdir()
+    (caller / "cuda_runtime.h").write_text("#error shadowed\n")
+    monkeypatch.chdir(caller)
+    build = tmp_path / "build"
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append((cmd, kw))
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: path)
+    lib = _build.load(CD.KERNEL)
+    (cmd, kw), = calls
+    assert kw["cwd"] == build and build.is_dir()
+    assert str(caller) not in " ".join(map(str, cmd))
+    assert lib.startswith(str(build))

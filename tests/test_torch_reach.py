@@ -163,9 +163,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         PandaRobot(PandaConfig(control_type="ee"))
     env = make_core("reach", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TE.make_batched_physics_step(env.model, env.task.scene,
-                                     check_collision=True, has_bodies=False)
     scene = build_scene([dict(shape=0, size=(0.02,) * 3, mass=1.0)],
                         1.1, 0.7, 0.4)
     with pytest.raises(NotImplementedError):
