@@ -47,14 +47,35 @@ from B and the card.  Phases, one progress line each:
      routes part) or an active-set near-tie (phase 3's perturbation test,
      there); then the step's time (the median of 10 steps timed one by
      one, with their spread) and the plain route's, one profiled step, and
-     K1 at n_substeps=1 beside its bound.
+     K1 at n_substeps=1 beside its bound;
+  8. training: Trainer.learn (TQC + HER, the TQC preset at full width:
+     [256, 256], 25 quantiles, 2 critics, batch 256, gSDE) on reachao1 at
+     n_envs = 64, cut to 3840 env steps of horizon 20 (a collect rollout and
+     its burst of 160 updates, then fused rollouts with 8 updates after each
+     env step), one evaluation, full-state checkpoints every 1280 steps,
+     in a temporary run directory; checks: K1 rose by 20 launches per env
+     step of every rollout and the evaluation, all on the lane-group kernel,
+     the learner's step equals the schedule's update count, losses, alpha
+     and parameters are finite and on the card with the buffer, the last
+     full-state checkpoint reloads (load_checkpoint, load_full) equal to the
+     live state, best_model.ckpt exists; the trained state copied to the
+     CPU: one HER batch from the same draws equal on both devices, and one
+     TQC update from the same state, batch and noise within rtol 1e-4
+     (losses, alpha) and rtol 1e-4 / atol 1e-6 (every gradient); K1 held
+     against its plain version on a training step's states; then ms per
+     collect and per fused env step, training env-steps/s, ms per TQC
+     update (CUDA events, median of 50), launches and busy share of one
+     profiled update and one fused env step, and K1 at one cold substep at
+     B = 64 and 512 beside its bound.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero before
 those lines.  Imports torch, numpy, the standard library and the port only.
 
 ``--times ROOT`` runs phases 1, 2, 5 and 6 only (K1 as the wrapper picks
-it, no plain version), and phase 7's step times where ROOT has ReachAO, on
+it, no plain version), phase 7's step times where ROOT has ReachAO, and
+phase 8's env-step and update times (a 2560-step run) where ROOT has the
+trainer, on
 the port of the checkout at ROOT (for example the parent commit, unpacked
 with ``git archive``), and prints no result line:
 running it on two checkouts in turns (A, B, B, A) compares two versions on
@@ -68,6 +89,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -718,25 +740,377 @@ def reach_ao_times(make_reach_ao_core, dev, card):
         time_reach_ao(env, s, acts, name, card)
 
 
-def k1_one_substep_times(CD, model, rng, dev, card):
-    """K1 at n_substeps=1 and cold, as the ReachAO step launches it, at
-    phase 7's two batches: time per launch beside the bound, and the plain
+def k1_one_substep_times(CD, model, rng, dev, card, batches,
+                         label="phase 7"):
+    """K1 at n_substeps=1 and cold, as the ReachAO step launches it, at the
+    given batches: time per launch beside the bound, and the plain
     version's time for one call.  Returns {B: (ms, plain_ms, bound_ms)}."""
     k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
                                   warm_start=False)
     n_ops = count_plain_ops(model, 0, n_substeps=1, warm_start=False)
     out = {}
-    for _, B, _ in REACH_AO:
+    for B in batches:
         q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
         ms = time_cuda(lambda: k1(q, qd, tgt), 20, queued=True)
         plain_ms = time_cuda(lambda: k1.plain(q, qd, tgt), 1, warmup=1)
         bound = k1_bound_ms(n_ops, B)
         out[B] = (ms, plain_ms, bound)
-        say(f"phase 7 K1 n_substeps=1 cold B={B}: {ms:.4f} ms/launch, bound "
+        say(f"{label} K1 n_substeps=1 cold B={B}: {ms:.4f} ms/launch, bound "
             f"{bound:.6f} ms ({n_ops} fp32 ops/env counted from the plain "
             f"version), {ms / bound:.1f}x the bound; plain version "
             f"{plain_ms:.1f} ms for one call | {card}")
     return out, n_ops
+
+
+# ------------------------------------------------------------------ phase 8
+# TQC + HER training on reachao1 through the Trainer, at the trainer's
+# n_envs = 64 (THROUGHPUT_r05.json, equal_budget) and the TQC preset's full
+# width (rl/config.py); only the depth is cut: 3840 env steps, three
+# rollouts of 64 x 20 when no episode ends early
+N_ENVS = 64
+HORIZON = 20
+TRAIN_STEPS = 3840
+# K1 at one cold substep, at the trainer's two batches
+B_TRAIN = (N_ENVS, 512)
+# the learner on the card against the CPU
+RTOL_LEARN, ATOL_GRAD = 1e-4, 1e-6
+N_UPDATE_TIMED = 50
+
+
+def train_config(max_timesteps=None):
+    """The smoke run's TrainConfig: learning starts at max_timesteps // 4,
+    the interleave gate opens at 640 stored transitions (even when
+    collisions end episodes early), one evaluation (at the last rollout)
+    and a full-state checkpoint every 1280 steps.  No benchmark scenes: two
+    of the five defaults need the batched IK (ROADMAP item 11)."""
+    from panda_gym_tpu_torch.rl.config import TrainConfig
+    max_timesteps = max_timesteps or TRAIN_STEPS
+    return TrainConfig(
+        n_envs=N_ENVS, stages=["reachao1"], max_ep_steps=[HORIZON],
+        max_timesteps=max_timesteps, learning_starts=TRAIN_STEPS // 3,
+        interleave_min_buffer=TRAIN_STEPS // 6, eval_freq=max_timesteps,
+        n_eval_episodes=N_ENVS, full_ckpt_freq=TRAIN_STEPS // 3,
+        benchmark_eval_scenes=[])
+
+
+def run_trainer(cfg, dev, run_root, CD=None):
+    """Trainer.learn() on the card, the envs built by make_reach_ao_core as
+    the CLI builds them; K1's counts are set to 0 as the env is made, just
+    before the run.  Returns (trainer, core, seconds)."""
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+    from panda_gym_tpu_torch.rl.logging_utils import RunLogger
+    from panda_gym_tpu_torch.rl.train import Trainer
+
+    cores = []
+
+    def make_env(sc, thr, spd):
+        core = make_reach_ao_core(sc, config=cfg, ee_error_threshold=thr,
+                                  speed_threshold=spd, device=dev.type)
+        motor = core.physics_step_batched.motor
+        motor.launches = 0
+        if CD is not None:
+            motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+        cores.append(core)
+        return core
+
+    logger = RunLogger(group="chip_smoke", name="phase8", config=cfg,
+                       root=run_root)
+    trainer = Trainer(cfg, make_env, logger=logger)
+    t0 = time.perf_counter()
+    trainer.learn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    logger.close()
+    return trainer, cores[0], seconds
+
+
+def rollout_rows(trainer):
+    """The rollout rows, split: collect-only, collect + one burst, fused."""
+    rows = [r for r in trainer.metrics.history if "rollout_reward" in r]
+    fused = [r for r in rows if "critic_loss" in r and r["t_update"] == 0.0]
+    burst = [r for r in rows if r["t_update"] > 0.0]
+    return rows, burst, fused
+
+
+def train_step_times(trainer, seconds, card):
+    """ms per collect and per fused env step from the rollout rows (host
+    clock; each rollout ends in a read of its lengths, a synchronize), and
+    training env-steps/s over the whole run."""
+    from panda_gym_tpu_torch.rl.train import schedule
+
+    rows, _, fused = rollout_rows(trainer)
+    coll = [r for r in rows if r not in fused]
+    n_upd = schedule(trainer.config, HORIZON).n_upd_per_step
+    for name, rs in (("collect", coll),
+                     (f"fused ({n_upd} updates after each)", fused)):
+        ms = [r["t_collect"] * 1e3 / HORIZON for r in rs]
+        say(f"phase 8 {name} env step at B={N_ENVS}: "
+            f"{', '.join(f'{m:.1f}' for m in ms)} ms per env step over "
+            f"{len(ms)} rollouts of {HORIZON} | {card}")
+    say(f"phase 8 training: {trainer.timesteps} env steps in {seconds:.2f} s"
+        f", {trainer.timesteps / seconds:.1f} env-steps/s (evaluation, "
+        f"checkpoints and set-up included) | {card}")
+
+
+def profile_once(fn, label, card):
+    """fn once under torch.profiler: its launches, the card's busy share of
+    the wall time and the kernels that take most.  Returns (launches,
+    busy us, wall us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the optimizers' record_function ranges appear on the device timeline
+    # as user annotations spanning their kernels: not kernels themselves
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        fail(f"{label} profile: the profiler saw no device time")
+    n_launch = sum(e.count for e in kernels)
+    say(f"{label}: wall {wall_us:.0f} us, card busy {busy_us:.0f} us "
+        f"({100 * busy_us / wall_us:.1f}%), {n_launch} kernel launches | "
+        f"{card}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        say(f"  {e.self_device_time_total:9.1f} us {e.count:5d}x  "
+            f"{e.key[:90]}")
+    return n_launch, busy_us, wall_us
+
+
+def update_times(trainer, core, card):
+    """ms per TQC update (CUDA events around each, the median of 50 after 5
+    of warm-up), alone and with its HER sample; one profiled update and one
+    profiled fused env step (the env step and its burst of 8 updates)."""
+    from panda_gym_tpu_torch.rl import her
+    from panda_gym_tpu_torch.rl.train import VectorEnv, learner_batch, schedule
+
+    learner, ts, buf, gen = (trainer.learner, trainer.ts, trainer.buffer,
+                             trainer.generator)
+    sched = schedule(trainer.config, HORIZON)
+    bs = sched.batch_size
+    rf = trainer._reward_fn(core)
+    batch = learner_batch(her.sample(buf, gen, bs, rf))
+    noise = learner.update_noise(gen, bs)
+
+    def timed(fn):
+        for _ in range(5):
+            fn()
+        ms = []
+        for _ in range(N_UPDATE_TIMED):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        return float(np.median(ms)), min(ms), max(ms)
+
+    upd = timed(lambda: learner.update(ts, batch, noise))
+    burst = timed(lambda: trainer.update_burst(ts, buf, gen, 1, bs, rf))
+    say(f"phase 8 TQC update (batch {bs}, net_arch "
+        f"{list(learner.net_arch)}, {learner.N_QUANTILES} quantiles x "
+        f"{learner.n_critics} critics): median {upd[0]:.3f} ms (min "
+        f"{upd[1]:.3f}, max {upd[2]:.3f}) over {N_UPDATE_TIMED}; with its "
+        f"HER sample {burst[0]:.3f} ms (min {burst[1]:.3f}, max "
+        f"{burst[2]:.3f}) | {card}")
+    n_upd, busy_upd, wall_upd = profile_once(
+        lambda: learner.update(ts, batch, noise),
+        "phase 8 profile of one TQC update", card)
+
+    venv = VectorEnv(core, N_ENVS, HORIZON)
+    states, obs = venv.batch_reset(gen)
+    dev = states.q.device
+    done = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
+    ep_len = torch.zeros(N_ENVS, dtype=torch.int32, device=dev)
+    expl = learner.sample_expl(ts, gen, N_ENVS)
+
+    def fused_step():
+        venv.env_step(learner, ts, states, obs, done, ep_len, gen, False, expl)
+        trainer.update_burst(ts, buf, gen, sched.n_upd_per_step, bs, rf)
+
+    fused_step()
+    n_step, busy_step, wall_step = profile_once(
+        fused_step, f"phase 8 profile of one fused env step at B={N_ENVS} "
+                    f"({sched.n_upd_per_step} updates)", card)
+    return dict(update_ms=upd[0], update_launches=n_upd,
+                update_busy=busy_upd / wall_upd, step_launches=n_step,
+                step_busy=busy_step / wall_step)
+
+
+def drive_training(CD, dev, card, run_root):
+    """Phase 8: the trainer's main path on the card and its checks, the
+    learner held against the CPU, then the times."""
+    from panda_gym_tpu_torch.rl.checkpoint import CheckpointManager, load_checkpoint
+    from panda_gym_tpu_torch.rl.learners import named_state, save_state
+    from panda_gym_tpu_torch.rl.train import Trainer, schedule
+
+    cfg = train_config()
+    trainer, core, seconds = run_trainer(cfg, dev, run_root, CD)
+    motor = core.physics_step_batched.motor
+    counts = dict(motor.kernel_launches)
+    sched = schedule(cfg, HORIZON)
+    rows, burst, fused = rollout_rows(trainer)
+    n_evals = sum("eval_success" in r for r in trainer.metrics.history)
+    eval_rounds = n_evals * -(-cfg.n_eval_episodes // N_ENVS)
+    env_steps = HORIZON * (len(rows) + eval_rounds)
+    want_updates = (len(burst) * sched.updates_per_rollout
+                    + len(fused) * HORIZON * sched.n_upd_per_step)
+    ts, buf = trainer.ts, trainer.buffer
+    state = named_state(ts)
+    run_dir = trainer.logger.dir
+    latest = CheckpointManager(os.path.join(run_dir, "full_state")).latest()
+    payload = load_checkpoint(latest) if latest else None
+    resumed = Trainer(cfg, None)
+    if latest:
+        resumed.load_full(os.path.join(run_dir, "full_state"))
+    live = save_state(ts)
+    metrics = [v for r in rows for k, v in r.items()
+               if k in ("critic_loss", "actor_loss", "alpha")]
+    checks = {
+        "K1: 20 launches per env step, all on the lane-group kernel":
+            counts == {CD.LANES: N_SUBSTEPS * env_steps, CD.THREAD: 0}
+            and motor.launches == N_SUBSTEPS * env_steps,
+        "a collect rollout, a burst and a fused rollout":
+            len(rows) > len(fused) > 0 and len(burst) > 0,
+        "one evaluation": n_evals == 1,
+        "learner step equals the schedule's update count":
+            ts.step == want_updates,
+        "losses and alpha finite": bool(metrics) and all(
+            np.isfinite(v) for v in metrics),
+        "parameters finite": all(bool(torch.isfinite(v).all())
+                                 for k, v in state.items()),
+        "learner and buffer on cuda": all(
+            v.device.type == "cuda" for k, v in state.items()
+            if "_opt/" not in k or not k.endswith("/step"))
+            and all(getattr(buf, k).device.type == "cuda"
+                    for k in ("obs", "achieved", "desired", "action", "aux",
+                              "ep_len", "terminated")),
+        "full-state checkpoint equals the live state": payload is not None
+            and resumed._resume is not None
+            and resumed.timesteps == trainer.timesteps
+            and all(torch.equal(payload["ts"]["tensors"][k], v)
+                    and torch.equal(resumed._resume["ts"]["tensors"][k], v)
+                    for k, v in live["tensors"].items())
+            and payload["ts"]["step"] == ts.step
+            and all(torch.equal(payload["buffer"]["tensors"][k],
+                                getattr(buf, k).cpu())
+                    for k in payload["buffer"]["tensors"])
+            and torch.equal(payload["generator"],
+                            trainer.generator.get_state()),
+        "best_model.ckpt": os.path.exists(os.path.join(run_dir,
+                                                       "best_model.ckpt")),
+    }
+    say(f"phase 8 main path: Trainer.learn on reachao1 at n_envs={N_ENVS}, "
+        f"{len(rows)} rollouts ({len(rows) - len(fused)} collect, "
+        f"{len(burst)} followed by a burst of {sched.updates_per_rollout}, "
+        f"{len(fused)} fused with {sched.n_upd_per_step} updates per env "
+        f"step) and {eval_rounds} evaluation rollout(s): {env_steps} env "
+        f"steps, K1 launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}"
+        f", {ts.step} updates, {trainer.timesteps} transitions, eval success "
+        f"{[r['eval_success'] for r in trainer.metrics.history if 'eval_success' in r]}"
+        f", checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 8 checks failed: {checks}")
+    learner_vs_cpu(trainer, core, card)
+    train_step_times(trainer, seconds, card)
+    times = update_times(trainer, core, card)
+    return counts[CD.LANES], core, times
+
+
+def learner_vs_cpu(trainer, core, card):
+    """The trained state copied to the CPU: one HER batch from the same
+    draws on both devices must be equal, and one TQC update from the same
+    state, batch and noise must agree (losses and alpha rtol 1e-4, every
+    gradient rtol 1e-4 and atol 1e-6; gradients, not the new parameters:
+    Adam maps each gradient element to about +-lr, so one at the rounding
+    level may flip by 2 lr)."""
+    from panda_gym_tpu_torch.rl import her
+    from panda_gym_tpu_torch.rl.learners import load_state, make_learner, save_state
+    from panda_gym_tpu_torch.rl.train import learner_batch
+
+    learner, ts, buf, gen = (trainer.learner, trainer.ts, trainer.buffer,
+                             trainer.generator)
+    cfg = trainer.config
+    cpu = make_learner(cfg.algorithm, learner.obs_dim, learner.act_dim,
+                       cfg.hyperparams, "cpu")
+    ts_cpu = load_state(cpu.init(torch.Generator().manual_seed(0)),
+                        save_state(ts))
+    buf_cpu = buf.to("cpu")
+    rf = trainer._reward_fn(core)
+    bs = cfg.hyperparams.batch_size
+    draws = her.draw(buf, gen, bs)
+    b_card = her.gather(buf, draws, rf)
+    b_cpu = her.gather(buf_cpu, {k: v.cpu() for k, v in draws.items()}, rf)
+    same = {k: torch.equal(b_card[k].cpu(), b_cpu[k]) for k in b_card}
+    say(f"phase 8 HER batch of {bs} on the card and on the CPU from the same "
+        f"draws: equal {same}")
+    if not all(same.values()):
+        fail(f"the HER batch differs between the card and the CPU: {same}")
+    noise = learner.update_noise(gen, bs)
+    _, m_card = learner.update(ts, learner_batch(b_card), noise)
+    _, m_cpu = cpu.update(ts_cpu, learner_batch(b_cpu),
+                          tuple(n.cpu() for n in noise))
+    worst = {}
+    for k in ("critic_loss", "actor_loss", "alpha"):
+        a, b = float(m_card[k]), float(m_cpu[k])
+        worst[k] = abs(a - b) / max(abs(b), 1e-30)
+    grads = {}
+    for name in ("actor", "critic"):
+        for (n, p), (_, q) in zip(getattr(ts, name).named_parameters(),
+                                  getattr(ts_cpu, name).named_parameters()):
+            grads[f"{name}.{n}"] = (p.grad.cpu(), q.grad)
+    grads["log_alpha"] = (ts.log_alpha.grad.cpu(), ts_cpu.log_alpha.grad)
+    over = {k: int(((a - b).abs() > ATOL_GRAD + RTOL_LEARN * b.abs()).sum())
+            for k, (a, b) in grads.items()}
+    err = max((a - b).abs().max().item() for a, b in grads.values())
+    say(f"phase 8 one TQC update, card vs CPU: relative differences "
+        f"{ {k: f'{v:.2e}' for k, v in worst.items()} } (rtol {RTOL_LEARN}); "
+        f"gradients of {len(grads)} tensors, max |d| {err:.3e}, elements "
+        f"outside rtol {RTOL_LEARN} atol {ATOL_GRAD}: {sum(over.values())} "
+        f"| {card}")
+    if max(worst.values()) > RTOL_LEARN or any(over.values()):
+        fail(f"the TQC update on the card disagrees with the CPU: {worst}, "
+             f"{ {k: v for k, v in over.items() if v} }")
+
+
+def k1_train_error(CD, core, dev):
+    """K1 at one cold substep against its plain version on one training
+    step's states at B = N_ENVS (a second wrapper, whose launches stay out
+    of the main path's counts).  Returns the largest error."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+
+    motor = core.physics_step_batched.motor
+    twin = CD.make_cuda_motor_steps(core.model, n_substeps=1, dt=DT,
+                                    ctrl_mode=motor.ctrl_mode,
+                                    warm_start=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, _ = core.batched_reset(N_ENVS, gen)
+    a = torch.rand(N_ENVS, core.robot.action_dim, generator=gen,
+                   device=dev) * 2.0 - 1.0
+    s_in = _hi_prec(core.robot.set_action)(states, a)
+    x = (s_in.q.contiguous(), s_in.qd.contiguous(),
+         s_in.ctrl_target.contiguous())
+    qk, qdk = twin(*x)
+    qp, qdp = twin.plain(*x)
+    eq = (qk - qp).abs().max().item()
+    eqd = (qdk - qdp).abs().max().item()
+    say(f"phase 8 K1 n_substeps=1 cold vs plain on a training step's states "
+        f"at B={N_ENVS}: max|dq|={eq:.3e} (atol {ATOL_Q}) max|dqd|="
+        f"{eqd:.3e} (atol {ATOL_QD})")
+    if eq > ATOL_Q or eqd > ATOL_QD:
+        fail("K1 disagrees with its plain version on the training states")
+    return max(eq, eqd)
 
 
 def main():
@@ -790,6 +1164,16 @@ def main():
             say(f"phase 7: no ReachAO in {root}")
         else:
             reach_ao_times(make_reach_ao_core, dev, card)
+        try:
+            from panda_gym_tpu_torch.rl import train  # noqa: F401
+        except ImportError:
+            say(f"phase 8: no trainer in {root}")
+        else:
+            with tempfile.TemporaryDirectory() as run_root:
+                trainer, core, seconds = run_trainer(
+                    train_config(TRAIN_STEPS * 2 // 3), dev, run_root)
+                train_step_times(trainer, seconds, card)
+                update_times(trainer, core, card)
         print(card, flush=True)
         return 0
     for lanes in (CD.LANES, CD.THREAD):
@@ -871,8 +1255,16 @@ def main():
               for _, B, _ in REACH_AO}
     if served != {CD.LANES, CD.THREAD}:
         fail(f"phase 7: the two ReachAO batches did not run both K1 kernels")
-    ao_times, ao_ops = k1_one_substep_times(CD, make_panda_model(), rng, dev,
-                                            card)
+    ao_times, ao_ops = k1_one_substep_times(
+        CD, make_panda_model(), rng, dev, card, [B for _, B, _ in REACH_AO])
+
+    # ---------------------------------------------------------------- 8
+    with tempfile.TemporaryDirectory() as run_root:
+        train_launches, train_core, _ = drive_training(CD, dev, card,
+                                                       run_root)
+    train_err = k1_train_error(CD, train_core, dev)
+    tr_times, _ = k1_one_substep_times(CD, make_panda_model(), rng, dev,
+                                       card, B_TRAIN, "phase 8")
 
     rows = []
     for lanes, tag in ((CD.LANES, "lanes"), (CD.THREAD, "thread")):
@@ -896,6 +1288,19 @@ def main():
         "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
         "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
         "launches": ao_launches[B_AO], "max_abs_err": ao_err[B_AO],
+        "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
+        "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
+        > 140.0 / PEAK_BYTES else "bytes",
+        "library_ms": None,
+    })
+    ms, p_ms, bound = tr_times[N_ENVS]
+    rows.append({
+        "name": f"K1 at n_substeps=1, cold, on the training path (Trainer on "
+                f"reachao1), {KERNEL_NAMES[CD.LANES]} (B={N_ENVS})",
+        "route": "cuda",
+        "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
+        "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
+        "launches": train_launches, "max_abs_err": train_err,
         "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
         "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
         > 140.0 / PEAK_BYTES else "bytes",

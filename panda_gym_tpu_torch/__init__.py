@@ -4,8 +4,10 @@ The batched Reach and ReachAO envs run here end to end:
 ``envs.panda_tasks.make_core("reach")`` and
 ``envs.tasks.reach_ao.make_reach_ao_core("reachao1")`` build them,
 ``batched_reset`` / ``batched_step`` drive them, and their robot physics
-goes through a hand-written CUDA kernel (``ops/csrc/motor_steps.cu``).  The package imports torch, numpy and the
-standard library only; it never imports the JAX package.  Every entry point
-runs on ``cuda`` unless the caller passes ``device="cpu"``.  Gym
-registration is not ported yet.
+goes through a hand-written CUDA kernel (``ops/csrc/motor_steps.cu``).
+``rl.train.Trainer`` (or ``python -m panda_gym_tpu_torch.rl.cli``) trains
+TQC + HER on them, the learner and the buffer on the env's device.  The
+package imports torch, numpy and the standard library only; it never
+imports the JAX package.  Every entry point runs on ``cuda`` unless the
+caller passes ``device="cpu"``.  Gym registration is not ported yet.
 """

@@ -14,9 +14,9 @@ Randomness comes from an explicit ``torch.Generator``.
 Not ported yet, each raising NotImplementedError when asked for: the pose
 randomizers that run the damped-least-squares IK (``torus``, ``ik_goal``,
 ``ik_sphere``, ``ik_range``; ROADMAP item 11), the ``prior`` observation
-(item 12), the multi-scene mixture core (slice 3) and the gym class
-(item 14).  ``random_base`` poses are ported.  Like the JAX package,
-``make_core`` does not build ReachAO: ``make_reach_ao_core`` does.
+(item 12) and the gym class (item 14).  ``random_base`` poses and the
+multi-scene mixture core are ported.  Like the JAX package, ``make_core``
+does not build ReachAO: ``make_reach_ao_core`` does.
 """
 from __future__ import annotations
 
@@ -931,9 +931,10 @@ def make_reach_ao_core(scenario: str = "reachao1",
                        device="cuda") -> RobotTaskEnv:
     config = config or TrainConfig()
     if "+" in scenario:
-        raise NotImplementedError(
-            "the multi-scene mixture core is not ported yet (ROADMAP slice 3, "
-            "item 9)")
+        return make_reach_ao_mixture_core(
+            scenario.split("+"), config=config,
+            ee_error_threshold=ee_error_threshold,
+            speed_threshold=speed_threshold, device=device)
     robot = PandaRobot(PandaConfig(
         block_gripper=True, control_type=config.control_type,
         obs_type=tuple(config.obs_type), action_limiter=config.action_limiter,
@@ -944,6 +945,72 @@ def make_reach_ao_core(scenario: str = "reachao1",
     return RobotTaskEnv(robot, task,
                         terminate_on_success=config.terminate_on_success,
                         n_substeps=config.n_substeps, device=device)
+
+
+class _MixtureReachAOEnv(RobotTaskEnv):
+    """Multi-scene ReachAO: each env draws a scenario at reset
+    (reach_ao.py:931-957).
+
+    Every scenario's obstacle arrays are padded to one shared capacity, so
+    one batched step covers all scenes and a rollout of N envs trains on
+    all of them at once.  Physics, observations and reward are the first
+    core's (the machinery is the same for every scenario under one config);
+    only the reset differs: one scene id per env from the generator, then
+    each scene's envs reset by that scene's task.
+    """
+
+    def __init__(self, cores):
+        self._cores = cores
+        base = cores[0]
+        super().__init__(base.robot, base.task,
+                         terminate_on_success=base.terminate_on_success,
+                         n_substeps=base.n_substeps, device=base.device)
+
+    def batched_reset(self, batch: int, generator=None):
+        generator = self._generator(generator)
+        sid = torch.randint(0, len(self._cores), (batch,),
+                            generator=generator, device=self.device)
+        state = self.init_state(batch)
+        fields = {k: getattr(state, k) for k in state.__dataclass_fields__}
+        obs = None
+        # the sub-batch sizes decide the shapes: one read of the ids
+        for i, n in enumerate(torch.bincount(
+                sid, minlength=len(self._cores)).tolist()):
+            if n == 0:
+                continue
+            idx = (sid == i).nonzero().flatten()
+            s_i, o_i = self._cores[i].batched_reset(n, generator)
+            for k, v in fields.items():
+                v[idx] = getattr(s_i, k)
+            if obs is None:
+                obs = {k: v.new_zeros((batch,) + v.shape[1:])
+                       for k, v in o_i.items()}
+            for k, v in o_i.items():
+                obs[k][idx] = v
+        return state.replace(**fields), obs
+
+
+def make_reach_ao_mixture_core(scenarios, config: Optional[TrainConfig] = None,
+                               ee_error_threshold: float = 0.05,
+                               speed_threshold: float = 0.1,
+                               device="cuda") -> RobotTaskEnv:
+    """Uniform mixture over `scenarios` (oversample a scene by repeating its
+    name), reach_ao.py:960-976.  make_reach_ao_core builds it from
+    '+'-joined scenario names, e.g. "reachao1+wall+tunnel"."""
+    config = config or TrainConfig()
+
+    def natural_capacity(name: str) -> int:
+        spec = get_scenario(name)
+        return max(len(spec.spheres) + len(spec.cuboids)
+                   + len(load_static_boxes(spec.static_scenario)), 1)
+
+    capacity = max(natural_capacity(s) for s in scenarios)
+    return _MixtureReachAOEnv([
+        make_reach_ao_core(s, config=config,
+                           ee_error_threshold=ee_error_threshold,
+                           speed_threshold=speed_threshold,
+                           capacity=capacity, device=device)
+        for s in scenarios])
 
 
 class PandaReachAOEnv:

@@ -4,7 +4,8 @@ no JAX; copied whole so that the port reads nothing of the JAX package).
 TrainConfig is the single flat experiment config (train_config.py:6-68 of
 the reference); ReachAO is built from it.  Hyperparameters provides the
 per-algorithm presets (hyperparameters.py:7-71: TQC / TQC_v2 / TD3 / PPO /
-DDPG); the trainer that reads them is not ported yet.
+DDPG), which rl/learners.py and rl/train.py read (TQC, TQC_v2 and SAC
+are ported).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Card-only tests of the PyTorch port: kernel K1 against its plain version
-and the batched Reach and ReachAO envs on the card.
+"""Card-only tests of the PyTorch port: kernel K1 against its plain version,
+the batched Reach and ReachAO envs, and the trainer (HER sample and TQC
+update against the CPU, a short Reach run) on the card.
 
 Run on a machine with an NVIDIA card (tests/conftest.py imports JAX, which
 such a machine need not have, so it is skipped):
@@ -20,6 +21,12 @@ from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
 from panda_gym_tpu_torch.models.panda import make_panda_model
 from panda_gym_tpu_torch.ops import cuda_dynamics as CD
 from panda_gym_tpu_torch.ops import dynamics as D
+from panda_gym_tpu_torch.rl import her
+from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
+from panda_gym_tpu_torch.rl.learners import (load_state, make_learner,
+                                             named_state, save_state)
+from panda_gym_tpu_torch.rl.logging_utils import RunLogger
+from panda_gym_tpu_torch.rl.train import Trainer, learner_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -160,3 +167,99 @@ def test_reach_ao_warm_on_card_raises(card, monkeypatch):
     with pytest.raises(NotImplementedError):
         env.batched_step(states, torch.zeros(8, 7, device=card))
     assert env.physics_step_batched.motor.launches == 0
+
+
+# ------------------------------------------------------------------ training
+
+def _tqc_pair(card, net_arch=(256, 256)):
+    """A TQC learner (the preset: 25 quantiles, 2 critics, gSDE) on the
+    card and its twin on the CPU in the same state."""
+    hp = Hyperparameters("TQC")
+    hp.policy_kwargs = dict(hp.policy_kwargs, net_arch=list(net_arch))
+    on_card = make_learner("TQC", 62, 7, hp, card)
+    on_cpu = make_learner("TQC", 62, 7, hp, "cpu")
+    ts = on_card.init(torch.Generator(card).manual_seed(0))
+    ts_cpu = load_state(on_cpu.init(torch.Generator().manual_seed(0)),
+                        save_state(ts))
+    return on_card, ts, on_cpu, ts_cpu
+
+
+def _filled_buffer(card, n=64, T=20):
+    rng = np.random.default_rng(3)
+    buf = her.create(2 * n, T, 56, 3, 7, 5, card)
+    f = lambda *s: torch.as_tensor(rng.normal(0, 0.2, s).astype(np.float32),
+                                   device=card)
+    aux = f(n, T, 5).abs()
+    aux[..., 0] = (aux[..., 0] > 0.3).float()
+    return her.add_episodes(
+        buf, obs=f(n, T + 1, 56), achieved=f(n, T + 1, 3), desired=f(n, 3),
+        action=f(n, T, 7), aux=aux,
+        ep_len=torch.as_tensor(rng.integers(1, T + 1, n), device=card),
+        terminated=f(n, T) > 0.3)
+
+
+def test_her_sample_card_matches_cpu(card):
+    env = make_reach_ao_core("reachao1")
+    rf = lambda a, g, x: env.task.reward_from_aux(env, a, g, x)
+    buf = _filled_buffer(card)
+    draws = her.draw(buf, torch.Generator(card).manual_seed(1), 256)
+    b = her.gather(buf, draws, rf)
+    b_cpu = her.gather(buf.to("cpu"), {k: v.cpu() for k, v in draws.items()},
+                       rf)
+    for k in b:
+        assert b[k].device.type == "cuda"
+        assert torch.equal(b[k].cpu(), b_cpu[k]), k
+
+
+def test_tqc_update_card_matches_cpu(card):
+    """One update from the same state, batch and noise: losses and alpha
+    within rtol 1e-4, every gradient within rtol 1e-4, atol 1e-6 (chip_smoke
+    phase 8 says why gradients and not the new parameters)."""
+    env = make_reach_ao_core("reachao1")
+    rf = lambda a, g, x: env.task.reward_from_aux(env, a, g, x)
+    buf = _filled_buffer(card)
+    gen = torch.Generator(card).manual_seed(2)
+    batch = learner_batch(her.sample(buf, gen, 256, rf))
+    on_card, ts, on_cpu, ts_cpu = _tqc_pair(card)
+    noise = on_card.update_noise(gen, 256)
+    _, m = on_card.update(ts, batch, noise)
+    _, m_cpu = on_cpu.update(ts_cpu, {k: v.cpu() for k, v in batch.items()},
+                             tuple(n.cpu() for n in noise))
+    for k in ("critic_loss", "actor_loss", "alpha"):
+        np.testing.assert_allclose(float(m[k]), float(m_cpu[k]), rtol=1e-4)
+    for name in ("actor", "critic"):
+        for (n, p), q in zip(getattr(ts, name).named_parameters(),
+                             getattr(ts_cpu, name).parameters()):
+            np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                       q.grad.numpy(), rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{name}.{n}")
+    assert ts.step == ts_cpu.step == 1
+
+
+def test_reach_trainer_runs_on_card(card, tmp_path):
+    """Two rollouts of the Reach trainer at n_envs 512 on the card: each
+    rollout followed by a burst, every tensor of the learner and the buffer
+    on the card, K1 once per env step."""
+    cfg = TrainConfig(n_envs=512, stages=["s0"], max_ep_steps=[10],
+                      ee_error_thresholds=[0.05], success_thresholds=[2.0],
+                      max_timesteps=10240, learning_starts=5120,
+                      eval_freq=10 ** 9, benchmark_eval_scenes=[])
+    cores = []
+
+    def make_env(scene, thr, spd):
+        cores.append(make_core("reach"))
+        return cores[-1]
+
+    tr = Trainer(cfg, make_env, logger=RunLogger(root=str(tmp_path)))
+    tr.learn(seed=0)
+    rows = [r for r in tr.metrics.history if "rollout_reward" in r]
+    assert len(rows) == 2 and tr.timesteps == 10240
+    # learning starts at min(5120, 10240 // 4) = 2560: a burst of
+    # int(0.125 * 5120) = 640 after each rollout (the gate stays shut)
+    assert tr.ts.step == 2 * 640
+    assert cores[0].physics_step_batched.motor.launches == 2 * 10
+    for k, v in named_state(tr.ts).items():
+        if not k.endswith("/step"):
+            assert v.device.type == "cuda", k
+        assert torch.isfinite(v).all(), k
+    assert tr.buffer.device.type == "cuda" and tr.buffer.n_stored == 1024
