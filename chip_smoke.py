@@ -66,7 +66,24 @@ from B and the card.  Phases, one progress line each:
      collect and per fused env step, training env-steps/s, ms per TQC
      update (CUDA events, median of 50), launches and busy share of one
      profiled update and one fused env step, and K1 at one cold substep at
-     B = 64 and 512 beside its bound.
+     B = 64 and 512 beside its bound;
+  9. evaluation: the routed generalist (17 squashed-Gaussian members
+     [256, 256], x_dim 62, a router 62 -> 128 -> 128 -> 10) from the port's
+     asset copy under its training config, through perform_benchmark's
+     parts (batched_reset, run_episodes, summarize) at 64 episodes and
+     horizon 100, on reachao1 and on narrow_tunnel (its starts IK'd from
+     ik_range targets by the batched dls_ik); checks: K1 rose by exactly
+     20 launches per eval step, all on the lane-group kernel, every start
+     lies in the joint limits and either clears the obstacles by more than
+     0.05 and the table by more than 0 or is the neutral fallback (whose
+     share is printed), the rates lie in [0, 1] and sum to 1, success is at
+     least 0.85 on both scenes (the JAX package's: 0.98 and 1.00), and the
+     routed action on one obs batch agrees between the card and the CPU
+     (rtol 1e-5, atol 1e-6; choices equal where the router's top two
+     logits differ by more than 1e-5); K1 is held against its plain version
+     on an eval step's states; then ms per eval step (median, least and
+     most), ms per reset with its IK, episodes/s and one profiled eval
+     step's launches and busy share.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero before
@@ -781,8 +798,8 @@ def train_config(max_timesteps=None):
     """The smoke run's TrainConfig: learning starts at max_timesteps // 4,
     the interleave gate opens at 640 stored transitions (even when
     collisions end episodes early), one evaluation (at the last rollout)
-    and a full-state checkpoint every 1280 steps.  No benchmark scenes: two
-    of the five defaults need the batched IK (ROADMAP item 11)."""
+    and a full-state checkpoint every 1280 steps.  No benchmark scenes:
+    phase 9 drives the evaluation."""
     from panda_gym_tpu_torch.rl.config import TrainConfig
     max_timesteps = max_timesteps or TRAIN_STEPS
     return TrainConfig(
@@ -1113,6 +1130,172 @@ def k1_train_error(CD, core, dev):
     return max(eq, eqd)
 
 
+# ------------------------------------------------------------------ phase 9
+# evaluation of the routed generalist, the repo's headline policy, on the
+# 13-scene protocol's first scene and on one whose starts are IK'd; cut in
+# depth only (64 episodes, horizon 100, where the protocol runs 100 and 300)
+EVAL_SCENES = ("reachao1", "narrow_tunnel")
+EVAL_EPISODES = 64
+EVAL_HORIZON = 100
+EVAL_MIN_SUCCESS = 0.85
+# the routed action on the card against the CPU
+RTOL_ACT, ATOL_ACT, ROUTER_TIE = 1e-5, 1e-6, 1e-5
+
+
+def routed_vs_cpu(policy, npz, x, card):
+    """The routed action and the router's choice on one obs batch, on the
+    card and on the CPU.  Returns the largest action difference."""
+    from panda_gym_tpu_torch.eval.router import (load_routed_policy,
+                                                 routed_action)
+
+    cpu, _ = load_routed_policy(npz, "cpu")
+    a_card, c_card = routed_action(policy, x, return_choice=True)
+    a_cpu, c_cpu = routed_action(cpu, x.cpu(), return_choice=True)
+    top2 = torch.topk(cpu.router(x.cpu()), 2, -1).values
+    clear = (top2[:, 0] - top2[:, 1]) > ROUTER_TIE
+    d = (a_card.cpu() - a_cpu).abs()
+    over = int((d > ATOL_ACT + RTOL_ACT * a_cpu.abs()).sum())
+    same = bool(torch.equal(c_card.cpu()[clear], c_cpu[clear]))
+    say(f"phase 9 routed action on {x.shape[0]} observations, card vs CPU: "
+        f"max |d| {d.max().item():.3e}, {over} elements outside rtol "
+        f"{RTOL_ACT} atol {ATOL_ACT}; choices equal on the {int(clear.sum())}"
+        f" without a near-tie: {same} ({len(set(c_cpu.tolist()))} "
+        f"controllers chosen) | {card}")
+    if over or not same:
+        fail("the routed action on the card disagrees with the CPU")
+    return d.max().item()
+
+
+def k1_eval_error(CD, core, s_in):
+    """K1 at one cold substep against its plain version on an eval step's
+    states (a second wrapper, whose launches stay out of the main path's
+    counts).  Returns the largest error."""
+    motor = core.physics_step_batched.motor
+    twin = CD.make_cuda_motor_steps(core.model, n_substeps=1, dt=DT,
+                                    ctrl_mode=motor.ctrl_mode,
+                                    warm_start=False)
+    x = (s_in.q.contiguous(), s_in.qd.contiguous(),
+         s_in.ctrl_target.contiguous())
+    qk, qdk = twin(*x)
+    qp, qdp = twin.plain(*x)
+    eq = (qk - qp).abs().max().item()
+    eqd = (qdk - qdp).abs().max().item()
+    say(f"phase 9 K1 n_substeps=1 cold vs plain on an eval step's states at "
+        f"B={x[0].shape[0]}: max|dq|={eq:.3e} (atol {ATOL_Q}) max|dqd|="
+        f"{eqd:.3e} (atol {ATOL_QD})")
+    if eq > ATOL_Q or eqd > ATOL_QD:
+        fail("K1 disagrees with its plain version on the eval states")
+    return max(eq, eqd)
+
+
+def drive_eval(CD, root, dev, card):
+    """Phase 9: for each scene, the reset (timed, with its IK) and its start
+    checks, the main path (run_episodes with the routed policy, K1's counts
+    set to 0 just before and read just after; each eval step timed from one
+    policy call to the next, a synchronize in between), the results and
+    their checks, K1 against its plain version, one profiled eval step;
+    then the routed action on the card against the CPU.  Returns (K1
+    launches over both scenes, the largest K1 error)."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.eval import benchmark as EB
+    from panda_gym_tpu_torch.eval.cli import make_core_fn
+    from panda_gym_tpu_torch.eval.router import (RoutedLearner,
+                                                 load_routed_policy)
+    from panda_gym_tpu_torch.rl.logging_utils import load_config
+    from panda_gym_tpu_torch.rl.networks import flatten_obs
+
+    asset = os.path.join(root, "panda_gym_tpu_torch", "assets", "routed_gen")
+    npz = os.path.join(asset, "routed_policy.npz")
+    policy, meta = load_routed_policy(npz, dev)
+    with open(os.path.join(asset, "benchmark.json")) as f:
+        reference = json.load(f)
+    make_core = make_core_fn(load_config(os.path.join(asset, "config.json")),
+                             dev)
+    act = EB.make_policy(RoutedLearner(), [policy])
+    launches, k1_err, xs = 0, 0.0, []
+    for sc in EVAL_SCENES:
+        core = make_core(sc)
+        motor = core.physics_step_batched.motor
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, obs = core.batched_reset(EVAL_EPISODES, gen)
+        torch.cuda.synchronize()
+        reset_ms = (time.perf_counter() - t0) * 1e3
+        xs.append(flatten_obs(obs))
+        q = states.q
+        neutral = torch.as_tensor(core.robot.neutral, device=dev)
+        is_neutral = (q == neutral).all(1)
+        clear = core.task.robot_pose_mask(core, states, q[:, None])[:, 0]
+        in_limits = bool(((q >= torch.as_tensor(core.model.q_lo, device=dev))
+                          & (q <= torch.as_tensor(core.model.q_hi,
+                                                  device=dev))).all())
+
+        marks = []
+
+        def timed_policy(x):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return act(x)
+
+        motor.launches = 0
+        motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+        t0 = time.perf_counter()
+        done, ep_len, m = EB.run_episodes(core, timed_policy, states, obs,
+                                          EVAL_HORIZON)
+        res = EB.summarize(ep_len, m, core.n_substeps)
+        run_s = time.perf_counter() - t0
+        counts = dict(motor.kernel_launches)
+        n_steps = m["active"].shape[0]
+        launches += motor.launches
+        rates = [res[k] for k in ("success_rate", "collision_rate",
+                                  "timeout_rate")]
+        checks = {
+            "K1: 20 launches per eval step, all on the lane-group kernel":
+                counts == {CD.LANES: N_SUBSTEPS * n_steps, CD.THREAD: 0}
+                and motor.launches == N_SUBSTEPS * n_steps,
+            "starts in the joint limits": in_limits,
+            "starts clear (obstacles > 0.05, table > 0) or neutral": bool(
+                (clear | is_neutral).all()),
+            "rates in [0, 1], summing to 1": all(0 <= r <= 1 for r in rates)
+                and abs(sum(rates) - 1.0) < 1e-9,
+            f"success >= {EVAL_MIN_SUCCESS}":
+                res["success_rate"] >= EVAL_MIN_SUCCESS,
+            "metrics finite": all(np.isfinite(v) for v in res.values()),
+        }
+        ms = np.diff(marks) * 1e3
+        say(f"phase 9 main path: {sc}, routed generalist, {EVAL_EPISODES} "
+            f"episodes, {n_steps} of {EVAL_HORIZON} eval steps (every "
+            f"episode ended: {bool(done.all())}), K1 launches "
+            f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}; starts: "
+            f"{int(is_neutral.sum())} of {EVAL_EPISODES} neutral (fallback "
+            f"share {is_neutral.float().mean().item():.3f}), "
+            f"{int(clear.sum())} clear; success {res['success_rate']:.4f} "
+            f"collision {res['collision_rate']:.4f} timeout "
+            f"{res['timeout_rate']:.4f} mean_ep_length "
+            f"{res['mean_ep_length']:.2f} (JAX package, 100 episodes, "
+            f"horizon 300: success {reference[sc]['success_rate']}, "
+            f"mean_ep_length {reference[sc]['mean_ep_length']}); checks "
+            f"{checks}")
+        if not all(checks.values()):
+            fail(f"phase 9 checks of {sc} failed: {checks}")
+        say(f"phase 9 {sc} times: eval step median {np.median(ms):.1f} ms "
+            f"(least {ms.min():.1f}, most {ms.max():.1f}, over {len(ms)} "
+            f"steps, policy to policy); reset with its IK {reset_ms:.1f} ms;"
+            f" {EVAL_EPISODES / (run_s + reset_ms / 1e3):.1f} episodes/s "
+            f"(reset and {n_steps} eval steps in "
+            f"{run_s + reset_ms / 1e3:.2f} s) | {card}")
+
+        s_in = _hi_prec(core.robot.set_action)(states, act(xs[-1]))
+        k1_err = max(k1_err, k1_eval_error(CD, core, s_in))
+        profile_once(lambda: EB.run_episodes(core, act, states, obs, 1),
+                     f"phase 9 profile of one eval step ({sc}, "
+                     f"B={EVAL_EPISODES}: policy, batched_step, metrics)",
+                     card)
+    routed_vs_cpu(policy, npz, torch.cat(xs), card)
+    return launches, k1_err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", metavar="ROOT",
@@ -1266,6 +1449,9 @@ def main():
     tr_times, _ = k1_one_substep_times(CD, make_panda_model(), rng, dev,
                                        card, B_TRAIN, "phase 8")
 
+    # ---------------------------------------------------------------- 9
+    eval_launches, eval_err = drive_eval(CD, root, dev, card)
+
     rows = []
     for lanes, tag in ((CD.LANES, "lanes"), (CD.THREAD, "thread")):
         B, n = launches[lanes]
@@ -1301,6 +1487,21 @@ def main():
         "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
         "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
         "launches": train_launches, "max_abs_err": train_err,
+        "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
+        "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
+        > 140.0 / PEAK_BYTES else "bytes",
+        "library_ms": None,
+    })
+    ms, p_ms, bound = tr_times[EVAL_EPISODES]
+    rows.append({
+        "name": f"K1 at n_substeps=1, cold, on the evaluation path (the "
+                f"routed generalist through perform_benchmark on "
+                f"{' and '.join(EVAL_SCENES)}), {KERNEL_NAMES[CD.LANES]} "
+                f"(B={EVAL_EPISODES})",
+        "route": "cuda",
+        "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
+        "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
+        "launches": eval_launches, "max_abs_err": eval_err,
         "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
         "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
         > 140.0 / PEAK_BYTES else "bytes",

@@ -1,7 +1,8 @@
 """Carry model and state across from the JAX package.
 
 What crosses over: the model tables, the env state, a learner's TrainState
-(Flax parameter trees and optax Adam states) and a HER buffer.  All arrive
+(Flax parameter trees and optax Adam states), a HER buffer and a routed
+policy.  All arrive
 as numpy arrays (read off the JAX side with ``np.asarray``), so this module
 imports nothing of JAX:
 
@@ -9,6 +10,7 @@ imports nothing of JAX:
     state = env_state({k: np.asarray(getattr(jax_states, k)) for k in FIELDS}, device)
     ts = learner_state(learner, actor, critic, target, (mu, nu, count), ...)
     buf = her_buffer({k: np.asarray(getattr(jax_buf, k)) for k in BUFFER_FIELDS}, device)
+    policy = routed_policy(jax_policy.members, jax_policy.masks, jax_policy.router_params, device)
 
 Then both sides compute from the same model, state, parameters and data.
 """
@@ -19,6 +21,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from panda_gym_tpu_torch.eval.router import RoutedPolicy, build_routed_policy
 from panda_gym_tpu_torch.models.chain import (ARRAY_FIELDS, STATIC_FIELDS,
                                               ChainModel)
 from panda_gym_tpu_torch.rl import her
@@ -28,7 +31,7 @@ from panda_gym_tpu_torch.sim.state import FIELDS, EnvState
 
 __all__ = ["ARRAY_FIELDS", "STATIC_FIELDS", "FIELDS", "BUFFER_FIELDS",
            "chain_model", "env_state", "env_state_to_numpy", "flatten",
-           "learner_state", "her_buffer"]
+           "learner_state", "her_buffer", "routed_policy"]
 
 BUFFER_FIELDS = her.TENSORS + ("write_idx", "n_stored")
 
@@ -122,3 +125,11 @@ def her_buffer(arrays: Mapping[str, Any], device="cuda") -> her.HerBuffer:
                            dtype=dtypes.get(k, torch.float32), device=device)
            for k in her.TENSORS},
         write_idx=int(arrays["write_idx"]), n_stored=int(arrays["n_stored"]))
+
+
+def routed_policy(members, masks, router_params, device="cuda") -> RoutedPolicy:
+    """The port's RoutedPolicy from a JAX one (eval/router.py::RoutedPolicy):
+    the stacked members' and the router's Flax parameter trees and the
+    masks, all numpy, on ``device``."""
+    return build_routed_policy(flatten(members), np.asarray(masks),
+                               flatten(router_params), device)

@@ -5,7 +5,8 @@ Every method takes and returns batched tensors (the env batch leading), so
 there is no vmap.  Control modes "js" (joint position deltas) and "jsd"
 (joint velocity); "clip"/"scale" action limiters; obs modes "ee"/"js";
 velocity/acceleration/jerk bookkeeping (panda.py:120-175, 264-288).  The
-"ee" control waits for the batched IK (ROADMAP item 15).
+"ee" control (its set_action; the batched IK it calls is ported,
+ops/kinematics.py::dls_ik) and the "pcc" teleport wait for ROADMAP item 11.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class PandaRobot:
         if config.control_type not in ("js", "jsd"):
             raise NotImplementedError(
                 f"control_type {config.control_type!r} is not ported yet "
-                "(\"ee\": ROADMAP item 15)")
+                "(\"ee\" and \"pcc\": ROADMAP item 11)")
         self.config = config
         gripper = config.gripper
         if gripper == "auto":

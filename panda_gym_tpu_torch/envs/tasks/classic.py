@@ -1,6 +1,6 @@
 """Goal-conditioned tasks (port of _GoalTask and Reach from
 panda_gym_tpu/envs/tasks/classic.py:24-85).  Push, Slide, PickAndPlace,
-Stack and Flip wait for the contact physics (ROADMAP item 16)."""
+Stack and Flip wait for the contact physics (ROADMAP item 13)."""
 from __future__ import annotations
 
 import numpy as np

@@ -11,12 +11,13 @@ fallbacks as the JAX package; each draw is kept apart from its selection,
 so that the validity masks can be held against JAX on the same candidates.
 Randomness comes from an explicit ``torch.Generator``.
 
-Not ported yet, each raising NotImplementedError when asked for: the pose
-randomizers that run the damped-least-squares IK (``torus``, ``ik_goal``,
-``ik_sphere``, ``ik_range``; ROADMAP item 11), the ``prior`` observation
-(item 12) and the gym class (item 14).  ``random_base`` poses and the
-multi-scene mixture core are ported.  Like the JAX package, ``make_core``
-does not build ReachAO: ``make_reach_ao_core`` does.
+The pose randomizers (``random_base``, and ``torus``, ``ik_goal``,
+``ik_sphere`` and ``ik_range``, which IK every target of a reset in one
+batched ``dls_ik`` call) and the multi-scene mixture core are ported.  Not
+ported yet, each raising NotImplementedError when asked for: the ``prior``
+observation (ROADMAP item 12) and the gym class (item 14).  Like the JAX
+package, ``make_core`` does not build ReachAO: ``make_reach_ao_core``
+does.
 """
 from __future__ import annotations
 
@@ -59,9 +60,6 @@ CUBE_SMALL = (0.02, 0.02, 0.02)
 CUBE_MINI = (0.01, 0.01, 0.01)
 
 NEUTRAL = tuple(pc.NEUTRAL_JOINT_VALUES[:7])
-
-# pose randomizers that wait for the batched IK
-IK_POSE_RANDOMIZERS = ("torus", "ik_goal", "ik_sphere", "ik_range")
 
 
 @dataclass(frozen=True)
@@ -406,12 +404,6 @@ class ReachAO(Task):
             raise NotImplementedError(
                 "the 'prior' observation needs ops/neo.py, not ported yet "
                 "(ROADMAP item 12)")
-        pose = self.spec.pose_randomizer
-        if (self.randomize_robot_pose and pose is not None
-                and pose[0] in IK_POSE_RANDOMIZERS):
-            raise NotImplementedError(
-                f"the {pose[0]!r} pose randomizer needs the batched IK, not "
-                "ported yet (ROADMAP item 11)")
 
         # scene: plane + big table (reach_ao.py:268-290)
         self.scene = build_scene([], 2.0, 1.3, 0.4, 0.0)
@@ -639,21 +631,70 @@ class ReachAO(Task):
         return ok
 
     # --------------------------------------------------------- robot posing
-    def _random_poses(self, env, state, generator):
-        """One random start pose per env: set_random_robot_base
-        (reach_ao.py:1238-1241), the one pose randomizer without IK."""
-        q0 = torch.as_tensor(env.robot.neutral, device=env.device).expand(
-            state.batch_size, -1).clone()
-        q0[:, 0] = _uniform(generator, (state.batch_size,),
-                            float(pc.JOINT_LIM_MIN[0]),
-                            float(pc.JOINT_LIM_MAX[0]))
-        return q0
+    # set_robot_random_pose (reach_ao.py:806-817): a torus draw IKs this many
+    # targets and keeps the first whose EE height is in [0.4, 0.6]
+    TORUS_CANDIDATES = 8
+
+    def draw_pose_targets(self, generator, B: int, n: int):
+        """IK targets of n pose draws per env (reach_ao.py:568-611): (B, n,
+        3), or (B, n, TORUS_CANDIDATES, 3) for ``torus``."""
+        kind = self.spec.pose_randomizer
+        if kind[0] == "torus":
+            return sample_inside_torus(
+                generator, (B, n, self.TORUS_CANDIDATES),
+                front_half_only=kind[1])
+        if kind[0] == "ik_goal":
+            return self.draw_goals(generator, B, n)
+        if kind[0] == "ik_sphere":
+            return sample_hollow_sphere(generator, (B, n), kind[1], kind[2],
+                                        upper=True)
+        # "ik_range"
+        lo = torch.as_tensor(kind[1], device=generator.device)
+        hi = torch.as_tensor(kind[2], device=generator.device)
+        return _uniform(generator, (B, n, 3), lo, hi)
+
+    def ik_poses(self, env, targets):
+        """Every target (..., 3) IK'd from the neutral pose in one batched
+        dls_ik call (n_iters=30, reach_ao.py:581): (..., ndof)."""
+        flat = targets.reshape(-1, 3)
+        q0 = torch.as_tensor(env.robot.neutral, device=flat.device)
+        q = K.dls_ik(env.robot.model, env.robot.ee_site, flat, q0=q0,
+                     n_iters=30)
+        return q.reshape(targets.shape[:-1] + (q.shape[-1],))
+
+    def torus_mask(self, env, qs):
+        """Which IK'd torus poses (..., ndof) put the EE at a height in
+        [0.4, 0.6] (reach_ao.py:806-817)."""
+        flat = qs.reshape(-1, qs.shape[-1])
+        z = env.robot.ee_position(K.fk_world(env.robot.model, flat))[:, 2]
+        return ((z >= 0.4) & (z <= 0.6)).reshape(qs.shape[:-1])
+
+    def _random_poses(self, env, state, generator, n: int):
+        """n random start poses per env, (B, n, ndof): set_random_robot_base
+        (reach_ao.py:1238-1241), or the IK'd pose of a drawn target."""
+        B = state.batch_size
+        kind = self.spec.pose_randomizer[0]
+        neutral = torch.as_tensor(env.robot.neutral, device=env.device)
+        if kind == "random_base":
+            q = neutral.expand(B, n, -1).clone()
+            q[..., 0] = _uniform(generator, (B, n),
+                                 float(pc.JOINT_LIM_MIN[0]),
+                                 float(pc.JOINT_LIM_MAX[0]))
+            return q
+        qs = self.ik_poses(env, self.draw_pose_targets(generator, B, n))
+        if kind != "torus":
+            return qs
+        P = self.TORUS_CANDIDATES
+        flat = qs.reshape(B * n, P, -1)
+        return select_first_valid(
+            flat, self.torus_mask(env, flat),
+            neutral.expand(B * n, -1)).reshape(B, n, -1)
 
     def reset_robot(self, env, state, generator):
         state = super().reset_robot(env, state, generator)
         if not self.randomize_robot_pose or self.spec.pose_randomizer is None:
             return state
-        q_new = self._random_poses(env, state, generator)
+        q_new = self._random_poses(env, state, generator, 1)[:, 0]
         prob = self.spec.pose_randomize_prob
         if prob < 1.0:
             # start-pose curriculum: randomize a fraction of episodes only
@@ -661,16 +702,12 @@ class ReachAO(Task):
             q_new = torch.where(take, q_new, state.q)
         return state.replace(q=q_new, ctrl_target=q_new.clone())
 
-    def _set_coll_free_robot(self, env, state, generator):
-        """Re-draw the pose until clear of obstacles and table; fallback
-        neutral (reach_ao.py:1035-1060)."""
+    def robot_pose_mask(self, env, state, qs):
+        """Which candidate poses qs (B, P, ndof) clear the obstacles by 0.05
+        and the table by 0 (reach_ao.py:1035-1060), (B, P)."""
         margin = 0.05
-        P = self.POSE_CANDIDATES
-        B = state.batch_size
+        B, P = qs.shape[:2]
         model = env.robot.model
-        qs = torch.stack([state.q] + [
-            self._random_poses(env, state, generator) for _ in range(P - 1)],
-            1)                                                   # (B, P, n)
         fk = K.fk_world(model, qs.reshape(B * P, -1))
         rep = state.replace(**{
             k: getattr(state, k).repeat_interleave(P, 0)
@@ -680,10 +717,18 @@ class ReachAO(Task):
         # the reference rejects with check_collided(), which tests the table
         # too (reach_ao.py:896-900)
         td = group_table_distances(model, fk, self.scene)
-        ok = ((torch.amin(gd, -1) > margin)
-              & (torch.amin(td, -1) > 0.0)).reshape(B, P)
+        return ((torch.amin(gd, -1) > margin)
+                & (torch.amin(td, -1) > 0.0)).reshape(B, P)
+
+    def _set_coll_free_robot(self, env, state, generator):
+        """The current pose, or else the first of POSE_CANDIDATES - 1 fresh
+        draws, that clears obstacles and table; fallback neutral
+        (reach_ao.py:1035-1060)."""
+        qs = torch.cat([state.q[:, None], self._random_poses(
+            env, state, generator, self.POSE_CANDIDATES - 1)], 1)
         neutral = torch.as_tensor(env.robot.neutral, device=env.device)
-        q = select_first_valid(qs, ok, neutral.expand(B, -1))
+        q = select_first_valid(qs, self.robot_pose_mask(env, state, qs),
+                               neutral.expand(state.batch_size, -1))
         return state.replace(q=q, qd=torch.zeros_like(state.qd),
                              ctrl_target=q.clone())
 

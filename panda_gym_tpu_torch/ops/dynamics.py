@@ -2,7 +2,7 @@
 
 Read from the same environment variables, with the same defaults, as the
 JAX package (dynamics.py:229-247).  The per-env ``rnea`` / ``crba`` /
-``motor_substep`` wait for the per-env path (ROADMAP queue 1, item 3); the
+``motor_substep`` wait for the per-env path (ROADMAP item 16); the
 batched physics lives in ``ops/scalarized.py`` and its kernel.
 """
 import os as _os

@@ -7,18 +7,23 @@ checkpoints the learner.
 
 Options keep tools/train.py's names.  Training runs on the card unless
 ``--device cpu`` is given; without a card it raises.  ``--benchmark``
-waits for the port's evaluation (ROADMAP item 10) and ``--prior-steps``
-for the prior (item 12); both raise.  ``--benchmark-eval-scenes`` sets
-TrainConfig.benchmark_eval_scenes, the scenes evaluated in the final stage:
-two of its five defaults, narrow_tunnel and workshop2, need the batched IK
-(item 11) and raise.
+scores the best evaluation snapshot (else the final learner) on the
+reference's 13-scene protocol afterwards (eval/benchmark.py, horizon 300),
+written to <run dir>/benchmark.json and .csv.  ``--prior-steps`` waits for
+the prior (ROADMAP item 12) and raises.  ``--benchmark-eval-scenes`` sets
+TrainConfig.benchmark_eval_scenes, the scenes evaluated in the final stage
+(default: TrainConfig's five).
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+from panda_gym_tpu_torch.eval import benchmark as EB
 from panda_gym_tpu_torch.rl.config import TrainConfig
+
+# the protocol's episode horizon (tools/train.py:225)
+BENCHMARK_HORIZON = 300
 
 
 def parse_args(argv=None):
@@ -78,7 +83,8 @@ def parse_args(argv=None):
                    help="write a rolling full-state checkpoint every N env "
                         "steps (0 = off)")
     p.add_argument("--benchmark", action="store_true",
-                   help="not ported yet (ROADMAP item 10): raises")
+                   help="run the 13-scenario benchmark after training")
+    p.add_argument("--benchmark-episodes", type=int, default=100)
     p.add_argument("--obs-max-distance", type=float, default=None)
     p.add_argument("--net-arch", nargs="+", type=int, default=None)
     p.add_argument("--no-resume-buffer", action="store_true")
@@ -89,10 +95,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.benchmark:
-        raise NotImplementedError(
-            "--benchmark needs the port's evaluation, not ported yet "
-            "(ROADMAP item 10)")
     if args.prior_steps > 0:
         raise NotImplementedError(
             "--prior-steps needs rl/imitation.py, not ported yet (ROADMAP "
@@ -161,8 +163,24 @@ def main(argv=None):
     final = os.path.join(logger.dir, "final.ckpt")
     trainer.save(final, include_buffer=True)
     trainer.save(os.path.join(logger.dir, "final_model.ckpt"))
-    logger.close()
     print(f"saved final learner to {final}")
+
+    if args.benchmark:
+        # the best evaluation snapshot when there is one, as the reference
+        # benchmarks best_model.zip (load_model_utils.py:14-50)
+        best = os.path.join(logger.dir, "best_model.ckpt")
+        if os.path.exists(best):
+            trainer.load(best, restore_buffer=False)
+            print(f"benchmarking best eval snapshot {best}")
+        results = EB.evaluate_scenarios(
+            trainer.learner, [trainer.ts],
+            make_core=lambda sc: make_env(sc, 0.05, 0.5),
+            scenarios=EB.BENCHMARK_SCENARIOS,
+            n_episodes=args.benchmark_episodes, horizon=BENCHMARK_HORIZON,
+            seed=args.seed)
+        EB.display_and_save_benchmark_results(
+            results, os.path.join(logger.dir, "benchmark"))
+    logger.close()
     return trainer
 
 

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: kernel K1 against its plain version,
-the batched Reach and ReachAO envs, and the trainer (HER sample and TQC
-update against the CPU, a short Reach run) on the card.
+the batched Reach and ReachAO envs, the trainer (HER sample and TQC
+update against the CPU, a short Reach run) and the batched IK of the
+evaluation's start poses (against the CPU) on the card.
 
 Run on a machine with an NVIDIA card (tests/conftest.py imports JAX, which
 such a machine need not have, so it is skipped):
@@ -18,9 +19,10 @@ import torch
 from panda_gym_tpu_torch.envs.core import _hi_prec
 from panda_gym_tpu_torch.envs.panda_tasks import make_core
 from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
-from panda_gym_tpu_torch.models.panda import make_panda_model
+from panda_gym_tpu_torch.models.panda import EE_SITE, make_panda_model
 from panda_gym_tpu_torch.ops import cuda_dynamics as CD
 from panda_gym_tpu_torch.ops import dynamics as D
+from panda_gym_tpu_torch.ops import kinematics as K
 from panda_gym_tpu_torch.rl import her
 from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
 from panda_gym_tpu_torch.rl.learners import (load_state, make_learner,
@@ -155,6 +157,26 @@ def test_reach_ao_step_k1_route_matches_plain(card):
             .item() <= 1e-4)
     assert torch.equal(out_k.is_collided, out_p.is_collided)
     assert out_k.is_collided[:4].all()
+
+
+def test_dls_ik_card_matches_cpu(card):
+    """The batched IK as ReachAO's pose randomizers call it (30 steps from
+    the neutral pose), on targets of the three IK'd benchmark scenes'
+    ranges: the card's q within 1e-5 of the CPU's."""
+    model = make_panda_model()
+    rng = np.random.default_rng(3)
+    boxes = [((0.0, -0.6, 0.2), (0.5, -0.5, 0.7)),        # narrow_tunnel
+             ((-0.5, -0.8, 0.4), (0.2, -0.4, 0.7)),       # industrial
+             ((0.3, -0.5, 0.2), (0.6, 0.5, 0.6))]         # in the shell
+    targets = np.concatenate([rng.uniform(lo, hi, (256, 3))
+                              for lo, hi in boxes]).astype(np.float32)
+    q0 = torch.as_tensor(make_core("reach", device="cpu").robot.neutral)
+    ik = _hi_prec(K.dls_ik)
+    q_cpu = ik(model, EE_SITE, torch.as_tensor(targets), q0=q0, n_iters=30)
+    q_card = ik(model, EE_SITE, torch.as_tensor(targets, device=card),
+                q0=q0.to(card), n_iters=30)
+    assert q_card.device.type == "cuda"
+    assert (q_card.cpu() - q_cpu).abs().max().item() <= 1e-5
 
 
 def test_reach_ao_warm_on_card_raises(card, monkeypatch):

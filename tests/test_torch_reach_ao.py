@@ -21,6 +21,9 @@ import torch
 from panda_gym_tpu.envs.tasks import reach_ao as jrao
 from panda_gym_tpu.ops import kinematics as JK
 from panda_gym_tpu.rl import config as jcfg
+from panda_gym_tpu.sim.engine import (
+    group_obstacle_distances as jgroup_obstacle_distances,
+    group_table_distances as jgroup_table_distances)
 
 from panda_gym_tpu_torch import convert
 from panda_gym_tpu_torch.envs.tasks import reach_ao as trao
@@ -441,13 +444,12 @@ def test_unported_options_raise():
     cfg.task_observations = {"obstacles": "closest", "prior": "neo"}
     with pytest.raises(NotImplementedError, match="item 12"):
         trao.make_reach_ao_core("reachao1", cfg, device="cpu")
+    # the IK pose randomizers are ported (test_ik_start_scenes_reset)
     for name in ("reachao_rand_start", "narrow_tunnel", "tunnel_rs"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            trao.make_reach_ao_core(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trao.make_reach_ao_core(
-            "reachao1", tcfg.TrainConfig(randomize_robot_pose=True),
-            device="cpu")
+        trao.make_reach_ao_core(name, device="cpu")
+    trao.make_reach_ao_core(
+        "reachao1", tcfg.TrainConfig(randomize_robot_pose=True),
+        device="cpu")
     # the mixture core is ported (tests/test_torch_train.py holds it)
     assert isinstance(trao.make_reach_ao_core("reachao1+wall", device="cpu"),
                       trao._MixtureReachAOEnv)
@@ -456,6 +458,138 @@ def test_unported_options_raise():
     # the static scenes and reachao1-3 run under the default config
     for name in ("reachao3", "wall", "tunnel", "wangexp-3"):
         trao.make_reach_ao_core(name, device="cpu")
+
+
+# ------------------------------------------------------ IK pose randomizers
+# one scene per IK randomizer, with the robot pose randomized
+POSE_SCENES = {"torus": ("reach1", True), "torus_full": ("wang-3", True),
+               "ik_goal": ("reachao2", True),
+               "ik_sphere": ("reachao_rand_start", False),
+               "ik_range": ("narrow_tunnel", False)}
+N_POSES = 7           # POSE_CANDIDATES - 1 fresh draws per env
+ATOL_IK = 1e-4        # tests/test_torch_kinematics_ik.py
+
+
+@pytest.fixture(scope="module", params=list(POSE_SCENES))
+def pose_setup(request):
+    """Both cores of one scene, a port reset of B envs and the same state
+    on the JAX side, and N_POSES pose targets per env drawn once (by the
+    port's sampler) and handed to both sides."""
+    name, by_config = POSE_SCENES[request.param]
+    cfg = dict(randomize_robot_pose=True) if by_config else {}
+    t = trao.make_reach_ao_core(name, tcfg.TrainConfig(**cfg), device="cpu")
+    j = jrao.make_reach_ao_core(name, jcfg.TrainConfig(**cfg))
+    ts, _ = t.batched_reset(B, torch.Generator().manual_seed(11))
+    js = _jax_states(j, convert.env_state_to_numpy(ts))
+    targets = t.task.draw_pose_targets(torch.Generator().manual_seed(12), B,
+                                       N_POSES).numpy()
+    if targets.ndim == 4:
+        # every torus target reaches an EE height in [0.4, 0.6]: lower some
+        # to 0.25 and 0.35, so that the height rule rejects them
+        targets[:, :, ::3, 2] = 0.25
+        targets[:4, :, :, 2] = 0.35
+    return t, j, ts, js, targets
+
+
+def _jax_ik(j, targets):
+    """JAX's IK of every target from the neutral pose, as _randomize_pose
+    calls it (reach_ao.py:580-581)."""
+    q0 = jnp.asarray(j.robot.neutral)
+    flat = jnp.asarray(targets.reshape(-1, 3))
+    q = jax.jit(jax.vmap(lambda p: JK.dls_ik(
+        j.robot.model, j.robot.ee_site, p, q0=q0, n_iters=30)))(flat)
+    return np.asarray(q).reshape(targets.shape[:-1] + (-1,))
+
+
+def test_pose_targets_follow_the_randomizer(pose_setup):
+    t, j, ts, js, targets = pose_setup
+    kind = t.task.spec.pose_randomizer
+    if kind[0] == "torus":
+        targets = t.task.draw_pose_targets(torch.Generator().manual_seed(12),
+                                           B, N_POSES).numpy()
+        assert targets.shape == (B, N_POSES, t.task.TORUS_CANDIDATES, 3)
+        ring = np.linalg.norm(targets[..., :2], axis=-1) - 0.5
+        assert (np.hypot(ring, targets[..., 2] - 0.5) <= 0.05 + 1e-6).all()
+        if kind[1]:
+            assert (targets[..., 0] > 0).all()
+        return
+    assert targets.shape == (B, N_POSES, 3)
+    if kind[0] == "ik_sphere":
+        r = np.linalg.norm(targets, axis=-1)
+        assert r.min() >= kind[1] - 1e-6 and r.max() <= kind[2] + 1e-6
+        assert (targets[..., 2] >= 0).all()
+    elif kind[0] == "ik_range":
+        assert (targets >= np.asarray(kind[1]) - 1e-7).all()
+        assert (targets <= np.asarray(kind[2]) + 1e-7).all()
+
+
+def test_ik_pose_candidates_match_jax(pose_setup):
+    """The IK'd candidates of both sides from the same targets."""
+    t, j, ts, js, targets = pose_setup
+    got = t.task.ik_poses(t, torch.as_tensor(targets)).numpy()
+    want = _jax_ik(j, targets)
+    assert got.shape == want.shape == targets.shape[:-1] + (7,)
+    np.testing.assert_allclose(got, want, atol=ATOL_IK)
+
+
+def test_pose_masks_match_jax(pose_setup):
+    """The torus height rule and the clearance rule of _set_coll_free_robot
+    (reach_ao.py:728-750), evaluated by the port on JAX's own IK'd
+    candidates, against the JAX package's distance functions on them; then
+    the selection with JAX's fallbacks."""
+    t, j, ts, js, targets = pose_setup
+    model = j.robot.model
+    qs = _jax_ik(j, targets)
+    neutral = np.asarray(j.robot.neutral)
+    if qs.ndim == 4:
+        zs = _jv(lambda _, q: JK.site_com_position(
+            model, JK.fk_world(model, q), j.robot.ee_site)[2],
+            jnp.zeros(B), jnp.asarray(qs.reshape(B, -1, 7)))
+        want = ((zs >= 0.4) & (zs <= 0.6)).reshape(qs.shape[:-1])
+        got = t.task.torus_mask(t, torch.as_tensor(qs)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert 0 < want.sum() < want.size and not want[:4].any()
+        # the first valid of each draw, else neutral
+        idx = want.argmax(-1)
+        pick = np.take_along_axis(qs, idx[..., None, None], -2)[..., 0, :]
+        qs = np.where(want.any(-1)[..., None], pick, neutral)
+    qs = np.concatenate([np.asarray(js.q)[:, None], qs], 1)    # (B, P, 7)
+
+    def clear(s, q):
+        fk = JK.fk_world(model, q)
+        gd, _, _ = jgroup_obstacle_distances(model, fk, s)
+        td = jgroup_table_distances(model, fk, j.task.scene)
+        return (jnp.min(gd) > 0.05) & (jnp.min(td) > 0.0)
+
+    want = np.array(_jv(clear, js, jnp.asarray(qs)))
+    got = t.task.robot_pose_mask(t, ts, torch.as_tensor(qs)).numpy()
+    np.testing.assert_array_equal(got, want)
+    q = trao.select_first_valid(torch.as_tensor(qs), torch.as_tensor(want),
+                                torch.as_tensor(neutral).expand(B, 7))
+    idx = want.argmax(1)
+    np.testing.assert_array_equal(
+        q.numpy(), np.where(want.any(1)[:, None], qs[np.arange(B), idx],
+                            neutral))
+
+
+@pytest.mark.parametrize("name", ["reachao_rand_start", "narrow_tunnel",
+                                  "industrial"])
+def test_ik_start_scenes_reset(name):
+    """The three benchmark scenes that start from an IK'd pose build and
+    reset: every start lies in the joint limits and either clears the
+    obstacles by 0.05 and the table by 0 or is the neutral fallback."""
+    env = trao.make_reach_ao_core(name, device="cpu")
+    states, obs = env.batched_reset(B, torch.Generator().manual_seed(3))
+    q = states.q
+    lo, hi = torch.as_tensor(env.model.q_lo), torch.as_tensor(env.model.q_hi)
+    assert ((q >= lo) & (q <= hi)).all()
+    neutral = torch.as_tensor(env.robot.neutral)
+    clear = env.task.robot_pose_mask(env, states, q[:, None])[:, 0]
+    assert (clear | (q == neutral).all(1)).all()
+    assert clear.float().mean() >= 0.5
+    assert not (q == neutral).all(1).all()
+    assert torch.equal(states.ctrl_target, q) and not states.qd.any()
+    assert torch.isfinite(obs["observation"]).all()
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

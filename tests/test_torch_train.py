@@ -14,7 +14,7 @@ and collided exact.  Also the mixture core against JAX's capacity.
 The port alone: the schedule against hand-derived numbers, stage advance
 and the final stage with a stubbed evaluate, kill-and-resume bit for bit,
 save / load with and without the buffer, the NotImplementedError paths and
-the CLI.
+the CLI (with its --benchmark).
 """
 import json
 import os
@@ -32,6 +32,7 @@ from panda_gym_tpu.rl import train as JT
 from panda_gym_tpu_torch import convert
 from panda_gym_tpu_torch.envs.panda_tasks import make_core, make_reach_core
 from panda_gym_tpu_torch.envs.tasks import reach_ao as trao
+from panda_gym_tpu_torch.eval import benchmark as EB
 from panda_gym_tpu_torch.rl import cli
 from panda_gym_tpu_torch.rl import learners as TL
 from panda_gym_tpu_torch.rl import train as TT
@@ -334,8 +335,6 @@ def test_cli(tmp_path, monkeypatch):
             "--full-ckpt-freq", "4", "--benchmark-eval-scenes",
             "--name", "t"]
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(args + ["--benchmark"])
     with pytest.raises(NotImplementedError, match="item 12"):
         cli.main(args + ["--prior-steps", "10"])
     if not torch.cuda.is_available():
@@ -351,3 +350,14 @@ def test_cli(tmp_path, monkeypatch):
     assert cfg["hyperparams"]["policy_kwargs"]["net_arch"] == [32, 32]
     assert cfg["benchmark_eval_scenes"] == []
     assert tr.ts.step >= 1 and tr.buffer.device.type == "cpu"
+    # --benchmark scores the best snapshot on the protocol's scenes (here
+    # two of them, at a horizon of 2) into <run>/benchmark.json and .csv
+    monkeypatch.setattr(EB, "BENCHMARK_SCENARIOS", ["reachao1", "wall"])
+    monkeypatch.setattr(cli, "BENCHMARK_HORIZON", 2)
+    cli.main(args + ["--device", "cpu", "--name", "b", "--benchmark",
+                     "--benchmark-episodes", "2"])
+    bench = json.loads((run.parent / "b" / "benchmark.json").read_text())
+    assert list(bench) == ["reachao1", "wall"]
+    assert all(r["scenario_episodes"] == 2 and r["mean_ep_length"] <= 2
+               for r in bench.values())
+    assert (run.parent / "b" / "benchmark.csv").exists()
