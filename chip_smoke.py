@@ -85,9 +85,45 @@ from B and the card.  Phases, one progress line each:
      most), ms per reset with its IK, episodes/s and one profiled eval
      step's launches and busy share.
 
-The line before the last is one JSON object with a row per kernel; the last
-line is {"ok": true, "device": {...}}.  Any failure exits non-zero before
-those lines.  Imports torch, numpy, the standard library and the port only.
+  10. the NEO prior and the ee/pcc control modes, every path through K1:
+     a. Reach under ee at B = 4096 (10 steps) and 65536 (3), and under pcc
+        at 4096 (10), through phase 4's main path and checks (K1 once per
+        step on the kernel the wrapper picks, the first two steps against
+        the plain physics by phase 4's rule); the ee IK targets of the
+        first step on the card against the CPU (atol 1e-5); ms per step and
+        a profile;
+     b. NEO alone at B = 64 and 4096 on reachao1 (1 sphere), tunnel (3
+        boxes) and industrial (16 boxes), env 0 with an obstacle ~0.1 m from
+        its end effector: the card against the CPU (atol 1e-4), ms per call
+        (CUDA events over 10), the operations counted on the CPU and one
+        profiled call's launches and busy share;
+     c. reachao1 with the prior observation at B = 4096, 3 steps: K1 rose
+        by 20 per step, the observation's last 7 entries are NEO on the
+        post-step states; the step's time (median of 10) and a profile;
+     d. Trainer.learn under tqc_ft2_tunnel's configuration (TQC at full
+        width, n_envs 64, tunnel), cut to one bootstrap rollout and the
+        collect rollouts of horizon 20 that 640 env steps take: the
+        bootstrap ran on an empty buffer before any update, K1 rose by 20
+        per prior env step, the buffer holds both, each rollout's burst
+        ran, losses finite; ms per bootstrap env step;
+     e. the prior strategy (no members, TrainConfig()) and bcf (d's
+        trained state) on reachao_rand_start, 64 episodes, horizon 100:
+        K1 rose by 20 per eval step, rates in [0, 1] summing to 1, ms per
+        eval step; the bcf action on one obs batch on the card against the
+        CPU (atol 1e-4).
+     Where a card result parts from the CPU's by more than its tolerance,
+     at most 16 envs may, each a tie of the reference: the CPU result of
+     16 copies of the env, q scaled by 1 + 1e-6 N(0, 1), spreads by more
+     than the tolerance and the card agrees with one copy.
+
+The line before the last is one JSON object with a row per kernel path
+(K1 on each path above); the last line is {"ok": true, "device": {...}}.
+Any failure exits non-zero before those lines.  Imports torch, numpy, the
+standard library and the port only.
+
+``--bootstrap`` builds K1 and times tqc_ft2_tunnel's full prior bootstrap
+(4 rollouts of 64 x 100 NEO steps, then one collect rollout) and prints no
+result line.
 
 ``--times ROOT`` runs phases 1, 2, 5 and 6 only (K1 as the wrapper picks
 it, no plain version), phase 7's step times where ROOT has ReachAO, and
@@ -445,12 +481,14 @@ def hold_with_ties(k1, lanes, x, out, ref, label, dev):
     return max(eq, eqd)
 
 
-def drive(make_core, _hi_prec, CD, B, n_steps, dev):
+def drive(make_core, _hi_prec, CD, B, n_steps, dev, control="js",
+          tag="phase 4"):
     """The main path at batch B: batched_reset, then n_steps batched_step
-    calls with random actions, K1's counts set to 0 just before and read
-    just after.  Returns the per-kernel launch counts, the largest error of
-    the first two steps against the plain physics, and the checks."""
-    env = make_core("reach", device="cuda")
+    calls with random actions (Reach under ``control``), K1's counts set to
+    0 just before and read just after.  Returns the per-kernel launch
+    counts, the largest error of the first two steps against the plain
+    physics, and the first step's states and actions."""
+    env = make_core("reach", control_type=control, device="cuda")
     motor = env.physics_step_batched.motor
     # a second wrapper of the same kernels for the near-tie checks, whose
     # launches stay out of the main path's counts
@@ -463,11 +501,14 @@ def drive(make_core, _hi_prec, CD, B, n_steps, dev):
     states, obs = env.batched_reset(B, gen)
     err = 0.0
     picked = CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+    first = None
     motor.launches = 0
     motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
     for i in range(n_steps):
         actions = torch.rand(B, env.robot.action_dim, generator=gen,
                              device=dev) * 2.0 - 1.0
+        if i == 0:
+            first = (states, actions)
         if i < 2:
             s_in = _hi_prec(env.robot.set_action)(states, actions)
             q_ref, qd_ref = motor.plain(s_in.q, s_in.qd, s_in.ctrl_target)
@@ -477,11 +518,11 @@ def drive(make_core, _hi_prec, CD, B, n_steps, dev):
             err = max(err, hold_with_ties(
                 twin, picked, (s_in.q, s_in.qd, s_in.ctrl_target),
                 (states.q, states.qd), (q_ref, qd_ref),
-                f"phase 4 B={B} step {i} vs plain physics:", dev))
+                f"{tag} B={B} step {i} vs plain physics:", dev))
         elif i < 2:
             eq = (states.q - q_ref).abs().max().item()
             eqd = (states.qd - qd_ref).abs().max().item()
-            say(f"phase 4 B={B} step {i} vs plain physics: max|dq|={eq:.3e} "
+            say(f"{tag} B={B} step {i} vs plain physics: max|dq|={eq:.3e} "
                 f"max|dqd|={eqd:.3e}")
             if eq > ATOL_Q or eqd > ATOL_QD:
                 fail(f"main-path step {i} at B={B} disagrees with the plain "
@@ -498,7 +539,8 @@ def drive(make_core, _hi_prec, CD, B, n_steps, dev):
         "q in limits": bool(((states.q >= q_lo) & (states.q <= q_hi)).all()),
         "steps": bool((states.steps == n_steps).all()),
     }
-    say(f"phase 4 main path: {n_steps} batched_step at B={B}, K1 launches "
+    say(f"{tag} main path: {n_steps} batched_step at B={B} ({control} "
+        f"control), K1 launches "
         f"{ {KERNEL_NAMES[k]: v for k, v in counts.items()} }, success rate "
         f"{info['is_success'].float().mean().item():.4f}, checks {checks}")
     if not all(checks.values()):
@@ -507,7 +549,7 @@ def drive(make_core, _hi_prec, CD, B, n_steps, dev):
     want[picked] = n_steps
     if counts != want:
         fail(f"K1 launches at B={B} were {counts}, expected {want}")
-    return counts, err
+    return counts, err, env, first
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1166,10 +1208,11 @@ def routed_vs_cpu(policy, npz, x, card):
     return d.max().item()
 
 
-def k1_eval_error(CD, core, s_in):
-    """K1 at one cold substep against its plain version on an eval step's
-    states (a second wrapper, whose launches stay out of the main path's
-    counts).  Returns the largest error."""
+def k1_eval_error(CD, core, s_in, what="phase 9 K1 n_substeps=1 cold vs "
+                                        "plain on an eval step's states"):
+    """K1 at one cold substep against its plain version on a step's states
+    (a second wrapper, whose launches stay out of the main path's counts).
+    Returns the largest error."""
     motor = core.physics_step_batched.motor
     twin = CD.make_cuda_motor_steps(core.model, n_substeps=1, dt=DT,
                                     ctrl_mode=motor.ctrl_mode,
@@ -1180,11 +1223,10 @@ def k1_eval_error(CD, core, s_in):
     qp, qdp = twin.plain(*x)
     eq = (qk - qp).abs().max().item()
     eqd = (qdk - qdp).abs().max().item()
-    say(f"phase 9 K1 n_substeps=1 cold vs plain on an eval step's states at "
-        f"B={x[0].shape[0]}: max|dq|={eq:.3e} (atol {ATOL_Q}) max|dqd|="
-        f"{eqd:.3e} (atol {ATOL_QD})")
+    say(f"{what} at B={x[0].shape[0]}: max|dq|={eq:.3e} (atol {ATOL_Q}) "
+        f"max|dqd|={eqd:.3e} (atol {ATOL_QD})")
     if eq > ATOL_Q or eqd > ATOL_QD:
-        fail("K1 disagrees with its plain version on the eval states")
+        fail(f"{what}: K1 disagrees with its plain version")
     return max(eq, eqd)
 
 
@@ -1233,10 +1275,10 @@ def drive_eval(CD, root, dev, card):
 
         marks = []
 
-        def timed_policy(x):
+        def timed_policy(x, states):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            return act(x)
+            return act(x, states)
 
         motor.launches = 0
         motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
@@ -1296,11 +1338,479 @@ def drive_eval(CD, root, dev, card):
     return launches, k1_err
 
 
+# ----------------------------------------------------------------- phase 10
+# the NEO prior and the ee/pcc control modes.  a: Reach under ee at the
+# main path's and bench.py's batches and under pcc; b: NEO alone at the
+# trainer's n_envs and the main path's B on one sphere (reachao1), three
+# boxes (tunnel) and the protocol's largest scene (industrial, 16 boxes);
+# c: reachao1 with the prior observation; d: Trainer.learn under
+# tqc_ft2_tunnel's configuration (training/run_data/round1_campaign), cut in
+# depth to one bootstrap rollout and one collect rollout of horizon 20;
+# e: the prior and bcf strategies on reachao_rand_start, cut in depth
+CONTROL_RUNS = (("ee", B_MAIN, 10), ("ee", B_BENCH, 3), ("pcc", B_MAIN, 10))
+NEO_SCENES = ("reachao1", "tunnel", "industrial")
+NEO_BATCHES = (N_ENVS, B_MAIN)
+# the NEO command and the ee IK target, card against CPU
+ATOL_NEO, ATOL_IK = 1e-4, 1e-5
+PRIOR_OBS = {"obstacles": "vectors+closest_per_link", "prior": "rrmc_neo"}
+PRIOR_OBS_STEPS = 3
+PRIOR_EVAL_SCENE = "reachao_rand_start"
+# tqc_ft2_tunnel: TQC preset, n_envs 64, horizon 100, tunnel, prior_steps
+# 20000 (4 rollouts of 64 x 100); here horizon 20 and one rollout
+FT2 = dict(stages=["tunnel"], max_ep_steps=[100],
+           prior_steps=20_000, reward_type="kumar", learning_starts=10_000,
+           max_timesteps=400_000, ee_error_thresholds=[0.05],
+           speed_thresholds=[0.5], success_thresholds=[1.0])
+
+
+def count_ops(fn):
+    """Operator calls of fn on CPU tensors other than views: what the card
+    launches for it, one kernel each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    views = {"expand", "view", "_unsafe_view", "unsqueeze", "transpose",
+             "select", "slice", "alias", "t", "permute", "squeeze",
+             "reshape", "detach", "unbind", "split", "as_strided",
+             "lift_fresh", "_local_scalar_dense"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += func.overloadpacket.__name__ not in views
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def to_cpu(states):
+    return states.replace(**{k: getattr(states, k).cpu()
+                             for k in states.__dataclass_fields__})
+
+
+def neo_call(model, ee_site, states):
+    """NEO's command toward each env's goal, as the prior policies call it."""
+    from panda_gym_tpu_torch.ops import kinematics as K
+    from panda_gym_tpu_torch.ops.neo import compute_action_neo
+
+    return compute_action_neo(model, ee_site, states,
+                              K.fk_world(model, states.q), states.goal)
+
+
+def hold_jumps(label, got, ref, atol, rerun, card):
+    """Hold a card result against the CPU's, per env within atol, or at
+    most MAX_TIES envs at a discontinuity of the reference: rerun(b)
+    returns the CPU result for 16 copies of env b, copies 1-15 with q
+    scaled by 1 + 1e-6 N(0, 1); the env is a tie if the copies spread by
+    more than atol and the card agrees with at least one copy.  Returns the
+    largest error over the envs within atol."""
+    d = (got.cpu() - ref).abs().amax(1)
+    bad = (d > atol).nonzero().flatten().tolist()
+    err = d[d <= atol].max().item() if len(bad) < d.numel() else 0.0
+    say(f"{label}: card vs CPU max |d| {err:.3e} (atol {atol}) on "
+        f"{d.numel() - len(bad)} envs; {len(bad)} outside | {card}")
+    if len(bad) > MAX_TIES:
+        fail(f"{label}: the card disagrees with the CPU on {len(bad)} envs")
+    for b in bad:
+        copies = rerun(b)
+        spread = (copies - copies[:1]).abs().max().item()
+        agree = int(((copies - got[b].cpu()).abs().amax(1) <= atol).sum())
+        tie = spread > atol and agree > 0
+        say(f"  env {b}: |d| {d[b].item():.3e}; 16 copies perturbed by "
+            f"1e-6: CPU spread {spread:.3e}, card agrees with {agree}: "
+            f"{'tie' if tie else 'FAIL'}")
+        if not tie:
+            fail(f"{label}: the card disagrees with the CPU on env {b}")
+    return err
+
+
+def perturbed(states, b):
+    """16 copies of env b, copies 1-15 with q scaled by 1 + 1e-6 N(0, 1)."""
+    s = take(states, [b] * 16)
+    g = torch.Generator().manual_seed(b)
+    noise = 1e-6 * torch.randn(s.q.shape, generator=g)
+    noise[0] = 0.0
+    return s.replace(q=s.q * (1.0 + noise))
+
+
+def ik_vs_cpu(env, states, actions, label, card):
+    """The ee IK targets (set_action's ctrl_target) on the card against the
+    CPU from the same states and actions (hold_jumps)."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.envs.panda_tasks import make_core
+
+    cpu_env = make_core("reach", control_type="ee", device="cpu")
+    set_cpu = _hi_prec(cpu_env.robot.set_action)
+    got = _hi_prec(env.robot.set_action)(states, actions).ctrl_target
+    s_cpu, a_cpu = to_cpu(states), actions.cpu()
+    ref = set_cpu(s_cpu, a_cpu).ctrl_target
+
+    def rerun(b):
+        return set_cpu(perturbed(s_cpu, b), a_cpu[[b] * 16]).ctrl_target
+
+    return hold_jumps(f"{label} ee IK targets", got, ref, ATOL_IK, rerun,
+                      card)
+
+
+def control_times(env, states, gen, card, tag, n=10):
+    """ms per step (host clock over n steps after 2 of warm-up, ending in a
+    synchronize) and one profiled step's launches and busy share."""
+    B = states.batch_size
+    acts = [torch.rand(B, env.robot.action_dim, generator=gen,
+                       device=states.q.device) * 2.0 - 1.0 for _ in range(4)]
+    for a in acts[:2]:
+        states, *_ = env.batched_step(states, a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        states, *_ = env.batched_step(states, acts[i % 4])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    say(f"{tag} batched_step B={B}: {ms:.3f} ms/step over {n} | {card}")
+    profile_step(env, states, acts, card, n=3, tag=tag)
+    return ms
+
+
+def drive_control(make_core, _hi_prec, CD, dev, card):
+    """Phase 10a: Reach under ee and pcc through phase 4's main path (K1's
+    counts, the plain physics on the first two steps), the ee IK targets
+    card vs CPU on the first step, then times.  Returns {(control, B):
+    (per-kernel launches, K1 error, ms/step)}."""
+    out = {}
+    for control, B, n_steps in CONTROL_RUNS:
+        tag = f"phase 10a {control}"
+        counts, err, env, (s0, a0) = drive(make_core, _hi_prec, CD, B,
+                                           n_steps, dev, control, tag)
+        if control == "ee":
+            ik_vs_cpu(env, s0, a0, f"{tag} B={B}", card)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        states, _ = env.batched_reset(B, gen)
+        ms = control_times(env, states, gen, card, f"{tag}")
+        out[control, B] = (counts, err, ms)
+    return out
+
+
+def neo_scene(name, B, dev):
+    """B reset envs of a scene under the default config; env 0's first
+    obstacle is moved to ~0.1 m of its end effector."""
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+
+    core = make_reach_ao_core(name, device="cuda")
+    states, obs = core.batched_reset(
+        B, torch.Generator(device=dev).manual_seed(SEED))
+    opos = states.obstacle_pos.clone()
+    opos[0, 0] = obs["achieved_goal"][0] + torch.tensor([0.0, 0.1, 0.1],
+                                                         device=dev)
+    return core, states.replace(obstacle_pos=opos)
+
+
+def drive_neo(dev, card):
+    """Phase 10b: NEO alone on each scene and batch: the card against the
+    CPU (hold_jumps), ms per call (CUDA events over 10 calls), the
+    operations counted on the CPU and one profiled call's launches and busy
+    share.  Returns {(scene, B): (ms, launches)}."""
+    out = {}
+    for name in NEO_SCENES:
+        for B in NEO_BATCHES:
+            core, states = neo_scene(name, B, dev)
+            model, ee = core.model, core.robot.ee_site
+            got = neo_call(model, ee, states)
+            s_cpu = to_cpu(states)
+            ref = neo_call(model, ee, s_cpu)
+            label = f"phase 10b NEO {name} B={B}"
+            hold_jumps(label, got, ref, ATOL_NEO,
+                       lambda b: neo_call(model, ee, perturbed(s_cpu, b)),
+                       card)
+            n_ops = count_ops(lambda: neo_call(model, ee,
+                                               take(s_cpu, [0, 1])))
+            ms = time_cuda(lambda: neo_call(model, ee, states), 10)
+            n, busy, wall = profile_once(
+                lambda: neo_call(model, ee, states),
+                f"{label} profile of one call ({n_ops} operations counted "
+                f"on the CPU, {states.obstacle_pos.shape[1]} obstacles)",
+                card)
+            say(f"{label}: {ms:.2f} ms per call | {card}")
+            out[name, B] = (ms, n)
+    return out
+
+
+def drive_prior_obs(CD, dev, card):
+    """Phase 10c: reachao1 with the prior observation at B = 4096, K1's
+    counts set to 0 just before the steps and read just after; the last 7
+    entries of each step's observation equal NEO on the post-step states;
+    then the step's time.  Returns (K1 launches, K1 error, ms/step)."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+    from panda_gym_tpu_torch.rl.config import TrainConfig
+
+    cfg = TrainConfig(task_observations=dict(PRIOR_OBS))
+    env = make_reach_ao_core("reachao1", config=cfg, device="cuda")
+    motor = env.physics_step_batched.motor
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s, obs = env.batched_reset(B_MAIN, gen)
+    acts = [torch.rand(B_MAIN, 7, generator=gen, device=dev) * 2.0 - 1.0
+            for _ in range(PRIOR_OBS_STEPS + 1 + N_TIMED)]
+    s_in = _hi_prec(env.robot.set_action)(s, acts[0])
+    motor.launches = 0
+    motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+    errs = []
+    for i in range(PRIOR_OBS_STEPS):
+        s, obs, *_ = env.batched_step(s, acts[i])
+        prior = _hi_prec(neo_call)(env.model, env.robot.ee_site, s)
+        errs.append((obs["observation"][:, -7:] - prior).abs().max().item())
+    torch.cuda.synchronize()
+    counts = dict(motor.kernel_launches)
+    checks = {
+        "K1: 20 launches per step, all on the lane-group kernel":
+            counts == {CD.LANES: N_SUBSTEPS * PRIOR_OBS_STEPS, CD.THREAD: 0},
+        "obs shape": tuple(obs["observation"].shape) == (B_MAIN, 56 + 7),
+        "obs finite": bool(torch.isfinite(obs["observation"]).all()),
+        "the last 7 entries are NEO on the post-step states":
+            max(errs) <= 1e-6,
+    }
+    say(f"phase 10c main path: reachao1 with the prior observation, "
+        f"{PRIOR_OBS_STEPS} batched_step at B={B_MAIN}, K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, prior entries "
+        f"vs NEO max |d| {max(errs):.2e}, checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 10c checks failed: {checks}")
+    err = k1_eval_error(CD, env, s_in, "phase 10c K1 n_substeps=1 cold vs "
+                                       "plain on a prior-observation step")
+    ms = []
+    for a in acts[PRIOR_OBS_STEPS + 1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, *_ = env.batched_step(s, a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    say(f"phase 10c reachao1 prior-observation batched_step B={B_MAIN}: "
+        f"median {np.median(ms):.1f} ms/step over {len(ms)} (min "
+        f"{min(ms):.1f}, max {max(ms):.1f}) | {card}")
+    profile_step(env, s, acts[:1], card, n=1, tag="phase 10c")
+    return counts[CD.LANES], err, float(np.median(ms))
+
+
+def ft2_config(horizon, rollouts, run_steps):
+    """tqc_ft2_tunnel's TrainConfig, cut in depth: ``rollouts`` bootstrap
+    rollouts of 64 x horizon and run_steps env steps of training (learning
+    from the first rollout on, no evaluation)."""
+    from panda_gym_tpu_torch.rl.config import TrainConfig
+
+    cfg = TrainConfig(n_envs=N_ENVS, **FT2)
+    cfg.max_ep_steps = [horizon]
+    cfg.prior_steps = rollouts * N_ENVS * horizon
+    cfg.max_timesteps = run_steps
+    cfg.learning_starts = 1
+    cfg.eval_freq = 10 ** 9
+    cfg.benchmark_eval_scenes = []
+    return cfg
+
+
+def run_bootstrap(cfg, dev, run_root, CD, card):
+    """Trainer.learn under cfg with fill_buffer_with_prior watched: its K1
+    launches, its time and the buffer and update count when it starts.
+    Returns (trainer, core, {what: value})."""
+    from panda_gym_tpu_torch.rl import train as T
+
+    fill = T.fill_buffer_with_prior
+    seen = {}
+
+    def watched(venv, buf, generator, n_rollouts):
+        motor = venv.core.physics_step_batched.motor
+        seen.update(stored=buf.n_stored, rollouts=n_rollouts,
+                    updates=trainer_box[0].ts.step,
+                    launches0=motor.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fill(venv, buf, generator, n_rollouts=n_rollouts)
+        torch.cuda.synchronize()
+        seen.update(seconds=time.perf_counter() - t0,
+                    launches=motor.launches - seen["launches0"],
+                    stored_after=out[0].n_stored,
+                    steps=n_rollouts * venv.horizon)
+        return out
+
+    trainer_box = [None]
+    T.fill_buffer_with_prior = watched
+    try:
+        from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+        from panda_gym_tpu_torch.rl.logging_utils import RunLogger
+
+        cores = []
+
+        def make_env(sc, thr, spd):
+            core = make_reach_ao_core(sc, config=cfg, ee_error_threshold=thr,
+                                      speed_threshold=spd, device=dev.type)
+            core.physics_step_batched.motor.launches = 0
+            core.physics_step_batched.motor.kernel_launches = {
+                CD.LANES: 0, CD.THREAD: 0}
+            cores.append(core)
+            return core
+
+        logger = RunLogger(group="chip_smoke", name="phase10", config=cfg,
+                           root=run_root)
+        trainer = T.Trainer(cfg, make_env, logger=logger)
+        trainer_box[0] = trainer
+        t0 = time.perf_counter()
+        trainer.learn()
+        torch.cuda.synchronize()
+        seen["run_seconds"] = time.perf_counter() - t0
+        logger.close()
+    finally:
+        T.fill_buffer_with_prior = fill
+    if not seen.get("steps"):
+        fail("the prior bootstrap did not run")
+    say(f"prior bootstrap: {seen['rollouts']} rollout(s) of {N_ENVS} x "
+        f"{seen['steps'] // seen['rollouts']} NEO steps in "
+        f"{seen['seconds']:.2f} s, {seen['seconds'] / seen['steps'] * 1e3:.1f}"
+        f" ms per env step, {seen['launches']} K1 launches | {card}")
+    return trainer, cores[0], seen
+
+
+def drive_bootstrap(CD, dev, card, run_root):
+    """Phase 10d: Trainer.learn under tqc_ft2_tunnel's configuration (TQC at
+    full width, n_envs 64, tunnel) cut to one bootstrap rollout and one
+    collect rollout of horizon 20 and its update burst; checks: the
+    bootstrap ran first, on an empty buffer and before any update, K1 rose
+    by 20 per prior env step on the lane-group kernel, the buffer holds the
+    prior's episodes and the run's, losses finite; K1 against its plain
+    version on a bootstrap step's states.  Returns (trainer, launches, K1
+    error, ms per bootstrap env step)."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.rl.imitation import neo_policy_fn
+
+    from panda_gym_tpu_torch.rl.train import schedule
+
+    horizon = HORIZON
+    cfg = ft2_config(horizon, 1, N_ENVS * horizon // 2)
+    trainer, core, seen = run_bootstrap(cfg, dev, run_root, CD, card)
+    rows = [r for r in trainer.metrics.history if "rollout_reward" in r]
+    burst = schedule(cfg, horizon).updates_per_rollout
+    losses = [v for r in rows for k, v in r.items()
+              if k in ("critic_loss", "actor_loss", "alpha")]
+    checks = {
+        "bootstrap on an empty buffer, before any update":
+            seen["stored"] == 0 and seen["updates"] == 0,
+        "K1: 20 launches per prior env step":
+            seen["launches"] == N_SUBSTEPS * seen["steps"],
+        "the buffer holds the prior's episodes and the run's":
+            seen["stored_after"] == N_ENVS
+            and trainer.buffer.n_stored == N_ENVS * (1 + len(rows)),
+        "a burst of updates after each collect rollout":
+            len(rows) >= 1 and trainer.ts.step == burst * len(rows),
+        "losses finite": bool(losses) and all(np.isfinite(v) for v in losses),
+    }
+    say(f"phase 10d main path: Trainer.learn under tqc_ft2_tunnel's config "
+        f"(tunnel, n_envs {N_ENVS}, horizon {horizon}, prior_steps "
+        f"{cfg.prior_steps}), {len(rows)} collect rollout(s), "
+        f"{trainer.ts.step} updates, checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 10d checks failed: {checks}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = core.batched_reset(N_ENVS, gen)
+    with torch.no_grad():
+        a = neo_policy_fn(core)(None, states, gen)
+    s_in = _hi_prec(core.robot.set_action)(states, a)
+    err = k1_eval_error(CD, core, s_in, "phase 10d K1 n_substeps=1 cold vs "
+                                        "plain on a bootstrap step's states")
+    return trainer, seen["launches"], err, seen["seconds"] / seen["steps"] * 1e3
+
+
+def drive_prior_eval(CD, trainer, dev, card):
+    """Phase 10e: the prior strategy (no members, TrainConfig()) and bcf
+    (phase d's trained state, prior_sigma 0.3) through run_episodes on
+    reachao_rand_start at 64 episodes and horizon 100, K1's counts set to 0
+    just before and read just after; rates in [0, 1] summing to 1; the bcf
+    action on one obs batch card vs CPU.  Returns (K1 launches, K1 error,
+    {strategy: (results, ms per eval step)})."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.eval import benchmark as EB
+    from panda_gym_tpu_torch.eval.cli import make_core_fn
+    from panda_gym_tpu_torch.rl.config import TrainConfig
+    from panda_gym_tpu_torch.rl.learners import load_state, make_learner, save_state
+    from panda_gym_tpu_torch.rl.networks import flatten_obs
+
+    core = make_core_fn(TrainConfig(), dev)(PRIOR_EVAL_SCENE)
+    motor = core.physics_step_batched.motor
+    learner, ts = trainer.learner, trainer.ts
+    launches, out = 0, {}
+    for strategy, members in (("prior", []), ("bcf", [ts])):
+        act = EB.make_policy(learner, members, strategy, core)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        states, obs = core.batched_reset(EVAL_EPISODES, gen)
+        marks = []
+
+        def timed_policy(x, s):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return act(x, s)
+
+        motor.launches = 0
+        motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+        done, ep_len, m = EB.run_episodes(core, timed_policy, states, obs,
+                                          EVAL_HORIZON)
+        res = EB.summarize(ep_len, m, core.n_substeps)
+        counts = dict(motor.kernel_launches)
+        n_steps = m["active"].shape[0]
+        launches += motor.launches
+        rates = [res[k] for k in ("success_rate", "collision_rate",
+                                  "timeout_rate")]
+        checks = {
+            "K1: 20 launches per eval step, all on the lane-group kernel":
+                counts == {CD.LANES: N_SUBSTEPS * n_steps, CD.THREAD: 0},
+            "rates in [0, 1], summing to 1": all(0 <= r <= 1 for r in rates)
+                and abs(sum(rates) - 1.0) < 1e-9,
+            "metrics finite": all(np.isfinite(v) for v in res.values()),
+        }
+        ms = np.diff(marks) * 1e3
+        say(f"phase 10e main path: {PRIOR_EVAL_SCENE}, strategy {strategy}, "
+            f"{EVAL_EPISODES} episodes, {n_steps} of {EVAL_HORIZON} eval "
+            f"steps, K1 launches "
+            f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}; success "
+            f"{res['success_rate']:.4f} collision {res['collision_rate']:.4f}"
+            f" timeout {res['timeout_rate']:.4f} mean_ep_length "
+            f"{res['mean_ep_length']:.2f}; eval step median "
+            f"{np.median(ms):.1f} ms (least {ms.min():.1f}, most "
+            f"{ms.max():.1f}); checks {checks} | {card}")
+        if not all(checks.values()):
+            fail(f"phase 10e checks of {strategy} failed: {checks}")
+        out[strategy] = (res, float(np.median(ms)))
+        with torch.no_grad():
+            a = act(flatten_obs(obs), states)
+        s_in = _hi_prec(core.robot.set_action)(states, a)
+    err = k1_eval_error(CD, core, s_in, "phase 10e K1 n_substeps=1 cold vs "
+                                        "plain on a bcf eval step's states")
+
+    # the bcf action on the card against the CPU, from the same obs batch
+    cfg = trainer.config
+    cpu_learner = make_learner(cfg.algorithm, learner.obs_dim,
+                               learner.act_dim, cfg.hyperparams, "cpu")
+    ts_cpu = load_state(cpu_learner.init(torch.Generator().manual_seed(0)),
+                        save_state(ts))
+    cpu_core = make_core_fn(TrainConfig(), "cpu")(PRIOR_EVAL_SCENE)
+    bcf_cpu = EB.make_policy(cpu_learner, [ts_cpu], "bcf", cpu_core)
+    bcf = EB.make_policy(learner, [ts], "bcf", core)
+    x = flatten_obs(obs)
+    s_cpu = to_cpu(states)
+    with torch.no_grad():
+        got = bcf(x, states)
+        ref = bcf_cpu(x.cpu(), s_cpu)
+        hold_jumps("phase 10e bcf action", got, ref, ATOL_NEO,
+                   lambda b: bcf_cpu(x.cpu()[[b] * 16], perturbed(s_cpu, b)),
+                   card)
+    return launches, err, out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", metavar="ROOT",
                     help="only build, time and profile the port of the "
                          "checkout at ROOT")
+    ap.add_argument("--bootstrap", action="store_true",
+                    help="only build and time tqc_ft2_tunnel's full prior "
+                         "bootstrap (4 rollouts of 64 x 100 NEO steps)")
     args = ap.parse_args()
     t_start = time.perf_counter()
     # ---------------------------------------------------------------- 1
@@ -1336,6 +1846,12 @@ def main():
             f"{loops[:4]}")
     model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
     rng = np.random.default_rng(SEED)
+    if args.bootstrap:
+        with tempfile.TemporaryDirectory() as run_root:
+            run_bootstrap(ft2_config(100, 4, N_ENVS * 100 // 2), dev,
+                          run_root, CD, card)
+        print(card, flush=True)
+        return 0
     if args.times:
         say(f"times of the port in {root}")
         k1_times(CD, model, rng, dev, card, each_kernel=False)
@@ -1410,7 +1926,7 @@ def main():
     # ---------------------------------------------------------------- 4
     launches = {}
     for B, n_steps in ((B_MAIN, N_STEPS), (B_BENCH, N_STEPS_BENCH)):
-        counts, e = drive(make_core, _hi_prec, CD, B, n_steps, dev)
+        counts, e, _, _ = drive(make_core, _hi_prec, CD, B, n_steps, dev)
         for lanes, n in counts.items():
             if n:
                 launches[lanes] = (B, n)
@@ -1452,61 +1968,67 @@ def main():
     # ---------------------------------------------------------------- 9
     eval_launches, eval_err = drive_eval(CD, root, dev, card)
 
+    # --------------------------------------------------------------- 10
+    ctl = drive_control(make_core, _hi_prec, CD, dev, card)
+    drive_neo(dev, card)
+    po_launches, po_err, _ = drive_prior_obs(CD, dev, card)
+    with tempfile.TemporaryDirectory() as run_root:
+        trainer, boot_launches, boot_err, _ = drive_bootstrap(CD, dev, card,
+                                                              run_root)
+        pe_launches, pe_err, _ = drive_prior_eval(CD, trainer, dev, card)
+
+    def bound_by(ops):
+        return ("operations" if float(ops) / PEAK_FP32_OPS > 140.0 / PEAK_BYTES
+                else "bytes")
+
+    def k1_row(name, launches, err, ms, p_ms, bound, ops):
+        return {"name": name, "route": "cuda",
+                "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
+                "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": p_ms, "bound_ms": bound,
+                "bound_by": bound_by(ops), "library_ms": None}
+
     rows = []
     for lanes, tag in ((CD.LANES, "lanes"), (CD.THREAD, "thread")):
         B, n = launches[lanes]
-        rows.append({
-            "name": f"K1 motor_steps_{tag}_kernel (B={B})", "route": "cuda",
-            "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
-            "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
-            "launches": n, "max_abs_err": err[lanes],
-            "ms": times[B, lanes], "plain_ms": plain_ms[B],
-            "bound_ms": k1_bound_ms(n_ops, B),
-            "bound_by": "operations" if float(n_ops) / PEAK_FP32_OPS
-            > 140.0 / PEAK_BYTES else "bytes",
-            "library_ms": None,
-        })
+        rows.append(k1_row(f"K1 motor_steps_{tag}_kernel (B={B})", n,
+                           err[lanes], times[B, lanes], plain_ms[B],
+                           k1_bound_ms(n_ops, B), n_ops))
     B_AO = REACH_AO[-1][1]
-    ms, p_ms, bound = ao_times[B_AO]
-    rows.append({
-        "name": f"K1 at n_substeps=1, cold, on the ReachAO collision step, "
-                f"{KERNEL_NAMES[CD.THREAD]} (B={B_AO})", "route": "cuda",
-        "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
-        "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
-        "launches": ao_launches[B_AO], "max_abs_err": ao_err[B_AO],
-        "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
-        "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
-        > 140.0 / PEAK_BYTES else "bytes",
-        "library_ms": None,
-    })
-    ms, p_ms, bound = tr_times[N_ENVS]
-    rows.append({
-        "name": f"K1 at n_substeps=1, cold, on the training path (Trainer on "
-                f"reachao1), {KERNEL_NAMES[CD.LANES]} (B={N_ENVS})",
-        "route": "cuda",
-        "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
-        "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
-        "launches": train_launches, "max_abs_err": train_err,
-        "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
-        "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
-        > 140.0 / PEAK_BYTES else "bytes",
-        "library_ms": None,
-    })
-    ms, p_ms, bound = tr_times[EVAL_EPISODES]
-    rows.append({
-        "name": f"K1 at n_substeps=1, cold, on the evaluation path (the "
-                f"routed generalist through perform_benchmark on "
-                f"{' and '.join(EVAL_SCENES)}), {KERNEL_NAMES[CD.LANES]} "
-                f"(B={EVAL_EPISODES})",
-        "route": "cuda",
-        "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
-        "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
-        "launches": eval_launches, "max_abs_err": eval_err,
-        "ms": ms, "plain_ms": p_ms, "bound_ms": bound,
-        "bound_by": "operations" if float(ao_ops) / PEAK_FP32_OPS
-        > 140.0 / PEAK_BYTES else "bytes",
-        "library_ms": None,
-    })
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the ReachAO collision step, "
+        f"{KERNEL_NAMES[CD.THREAD]} (B={B_AO})", ao_launches[B_AO],
+        ao_err[B_AO], *ao_times[B_AO], ao_ops))
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the training path (Trainer on "
+        f"reachao1), {KERNEL_NAMES[CD.LANES]} (B={N_ENVS})", train_launches,
+        train_err, *tr_times[N_ENVS], ao_ops))
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the evaluation path (the routed "
+        f"generalist through perform_benchmark on "
+        f"{' and '.join(EVAL_SCENES)}), {KERNEL_NAMES[CD.LANES]} "
+        f"(B={EVAL_EPISODES})", eval_launches, eval_err,
+        *tr_times[EVAL_EPISODES], ao_ops))
+    for (control, B), (counts, e, _) in ctl.items():
+        lanes = CD.LANES if counts[CD.LANES] else CD.THREAD
+        rows.append(k1_row(
+            f"K1 on Reach under {control} control, {KERNEL_NAMES[lanes]} "
+            f"(B={B})", counts[lanes], e, times[B, lanes], plain_ms[B],
+            k1_bound_ms(n_ops, B), n_ops))
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on ReachAO with the prior observation "
+        f"(reachao1), {KERNEL_NAMES[CD.LANES]} (B={B_MAIN})", po_launches,
+        po_err, *ao_times[B_MAIN], ao_ops))
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the prior bootstrap (Trainer under "
+        f"tqc_ft2_tunnel's config), {KERNEL_NAMES[CD.LANES]} (B={N_ENVS})",
+        boot_launches, boot_err, *tr_times[N_ENVS], ao_ops))
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the prior and bcf evaluation "
+        f"({PRIOR_EVAL_SCENE}), {KERNEL_NAMES[CD.LANES]} "
+        f"(B={EVAL_EPISODES})", pe_launches, pe_err,
+        *tr_times[EVAL_EPISODES], ao_ops))
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -21,6 +21,7 @@ import torch
 
 from panda_gym_tpu_torch.envs.robot import PandaRobot
 from panda_gym_tpu_torch.ops import kinematics as K
+from panda_gym_tpu_torch.ops.linalg import _hi_prec
 from panda_gym_tpu_torch.sim import engine
 from panda_gym_tpu_torch.sim.state import EnvState, SceneParams
 
@@ -33,25 +34,6 @@ def resolve_device(device) -> torch.device:
             "device 'cuda' requested but no CUDA device is available; "
             "pass device='cpu' to run on the CPU")
     return device
-
-
-def _hi_prec(fn):
-    """Run ``fn`` with TF32 off for fp32 matrix products and convolutions,
-    as envs/core.py:29-43 runs the JAX physics at "highest" precision; the
-    previous settings are restored afterwards."""
-
-    @functools.wraps(fn)
-    def wrapped(*a, **kw):
-        saved = (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            return fn(*a, **kw)
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = saved
-    return wrapped
 
 
 class Task:

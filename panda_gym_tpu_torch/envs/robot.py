@@ -2,11 +2,11 @@
 (port of panda_gym_tpu/envs/robot.py:27-217).
 
 Every method takes and returns batched tensors (the env batch leading), so
-there is no vmap.  Control modes "js" (joint position deltas) and "jsd"
-(joint velocity); "clip"/"scale" action limiters; obs modes "ee"/"js";
-velocity/acceleration/jerk bookkeeping (panda.py:120-175, 264-288).  The
-"ee" control (its set_action; the batched IK it calls is ported,
-ops/kinematics.py::dls_ik) and the "pcc" teleport wait for ROADMAP item 11.
+there is no vmap.  Control modes "ee" (end-effector displacement, resolved
+for the whole batch by one ops/kinematics.py::dls_ik call), "js" (joint
+position deltas), "jsd" (joint velocity) and "pcc" (teleport);
+"clip"/"scale" action limiters; obs modes "ee"/"js";
+velocity/acceleration/jerk bookkeeping (panda.py:120-175, 264-288).
 """
 from __future__ import annotations
 
@@ -21,6 +21,10 @@ from panda_gym_tpu_torch.models.panda import EE_SITE, make_panda_model
 from panda_gym_tpu_torch.ops import dynamics as D
 from panda_gym_tpu_torch.ops import kinematics as K
 from panda_gym_tpu_torch.sim.state import EnvState
+
+# IK orientation target for "ee" control: (1,0,0,0) xyzw = gripper pointing
+# down (panda.py:242-244).
+EE_DOWN_QUAT = np.array([1.0, 0.0, 0.0, 0.0], dtype=np.float32)
 
 
 @dataclass
@@ -40,10 +44,6 @@ class PandaRobot:
     """Owns the ChainModel + static config; all methods are pure."""
 
     def __init__(self, config: PandaConfig):
-        if config.control_type not in ("js", "jsd"):
-            raise NotImplementedError(
-                f"control_type {config.control_type!r} is not ported yet "
-                "(\"ee\" and \"pcc\": ROADMAP item 11)")
         self.config = config
         gripper = config.gripper
         if gripper == "auto":
@@ -54,9 +54,10 @@ class PandaRobot:
         self.ndof = self.model.ndof
         self.n_arm = 7
         self.ee_site = EE_SITE
-        # action dim: n_arm joints + 1 finger channel if not blocked
-        # (panda.py:47-48)
-        self.action_dim = self.n_arm + (0 if config.block_gripper else 1)
+        # action dim: 3 (ee) or n_arm (joints) + 1 finger channel if not
+        # blocked (panda.py:47-48)
+        n = 3 if config.control_type == "ee" else self.n_arm
+        self.action_dim = n + (0 if config.block_gripper else 1)
         self.ctrl_mode = (D.CTRL_VELOCITY if config.control_type == "jsd"
                           else D.CTRL_POSITION)
         self.neutral = np.zeros(self.ndof, dtype=np.float32)
@@ -98,9 +99,22 @@ class PandaRobot:
     def set_action(self, state: EnvState, action) -> EnvState:
         """Motor targets + bookkeeping for (B, action_dim) actions
         (panda.py:120-175); runs before the physics step."""
+        cfg = self.config
         action = self._limit_action(action)
         n = self.n_arm
-        q_arm = state.q[:, :n] + action[:, :n] * self.config.max_change_position
+        if cfg.control_type == "ee":
+            # the EE displaced by action * 0.05, z kept above 0
+            # (panda.py:235-240), resolved by 10 IK steps from q
+            target = (self.ee_position(K.fk_world(self.model, state.q))
+                      + action[:, :3] * cfg.max_change_position)
+            target = torch.cat([target[:, :2],
+                                torch.clamp_min(target[:, 2:], 0.0)], -1)
+            quat = torch.as_tensor(EE_DOWN_QUAT, device=target.device)
+            q_arm = K.dls_ik(self.model, self.ee_site, target,
+                             target_quat=quat.expand(target.shape[0], 4),
+                             q0=state.q, n_iters=10, n_arm=n)[:, :n]
+        else:
+            q_arm = state.q[:, :n] + action[:, :n] * cfg.max_change_position
         return self._finish_set_action(state, action, q_arm)
 
     def _finish_set_action(self, state: EnvState, action, q_arm) -> EnvState:
@@ -120,12 +134,19 @@ class PandaRobot:
         else:
             target = q_arm
 
+        q, qd = state.q, state.qd
         if cfg.control_type == "jsd":
             # velocity control: targets are the action itself (panda.py:155-158)
             ctrl_target = action[:, :self.n_arm]
             if self.ndof > 7:
                 ctrl_target = torch.cat(
                     [ctrl_target, torch.zeros_like(ctrl_target[:, :2])], -1)
+        elif cfg.control_type == "pcc":
+            # teleport (panda.py:159-162): resetJointState zeroes velocity
+            T = self.model.tensors(target.device)
+            q = torch.clamp(target, T["q_lo"], T["q_hi"])
+            qd = torch.zeros_like(state.qd)
+            ctrl_target = q
         else:
             ctrl_target = target
 
@@ -141,7 +162,7 @@ class PandaRobot:
 
         na = self.action_dim
         return state.replace(
-            ctrl_target=ctrl_target.contiguous(),
+            q=q, qd=qd, ctrl_target=ctrl_target.contiguous(),
             prev_action=state.recent_action,
             recent_action=action[:, :na],
             action_count=state.action_count + 1,

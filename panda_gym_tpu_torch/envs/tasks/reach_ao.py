@@ -13,11 +13,11 @@ Randomness comes from an explicit ``torch.Generator``.
 
 The pose randomizers (``random_base``, and ``torus``, ``ik_goal``,
 ``ik_sphere`` and ``ik_range``, which IK every target of a reset in one
-batched ``dls_ik`` call) and the multi-scene mixture core are ported.  Not
-ported yet, each raising NotImplementedError when asked for: the ``prior``
-observation (ROADMAP item 12) and the gym class (item 14).  Like the JAX
-package, ``make_core`` does not build ReachAO: ``make_reach_ao_core``
-does.
+batched ``dls_ik`` call), the ``prior`` observation (the NEO command toward
+the goal, ops/neo.py, for the whole batch at once) and the multi-scene
+mixture core are ported.  The gym class waits for ROADMAP item 14 and
+raises NotImplementedError.  Like the JAX package, ``make_core`` does not
+build ReachAO: ``make_reach_ao_core`` does.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ from panda_gym_tpu_torch.envs.robot import PandaConfig, PandaRobot
 from panda_gym_tpu_torch.models import panda_constants as pc
 from panda_gym_tpu_torch.ops import contact as C
 from panda_gym_tpu_torch.ops import kinematics as K
+from panda_gym_tpu_torch.ops.neo import compute_action_neo
 from panda_gym_tpu_torch.rl.config import TrainConfig
 from panda_gym_tpu_torch.sim.engine import (group_obstacle_distances,
                                             group_table_distances)
@@ -400,10 +401,6 @@ class ReachAO(Task):
         # the raw values); the default keeps the reference's raw 999.0
         self.obs_max_distance = float(
             self.config.task_observations.get("max_distance", 999.0))
-        if self.prior is not None:
-            raise NotImplementedError(
-                "the 'prior' observation needs ops/neo.py, not ported yet "
-                "(ROADMAP item 12)")
 
         # scene: plane + big table (reach_ao.py:268-290)
         self.scene = build_scene([], 2.0, 1.3, 0.4, 0.0)
@@ -858,7 +855,16 @@ class ReachAO(Task):
 
     def task_obs(self, env, state, fk):
         """The obstacle observation in this task's mode (reach_ao.py:
-        902-941)."""
+        902-941), then, with a ``prior``, NEO's joint-velocity command
+        toward the goal (reach_ao.py:803-810)."""
+        out = self._obstacle_obs(env, state, fk)
+        if self.prior is not None:
+            out = torch.cat([out, compute_action_neo(
+                env.robot.model, env.robot.ee_site, state, fk, state.goal)],
+                -1)
+        return out
+
+    def _obstacle_obs(self, env, state, fk):
         gd, gpc, gpo = group_obstacle_distances(env.robot.model, fk, state)
         mode = self.obstacle_obs
         gd_o = torch.clamp_max(gd, self.obs_max_distance)

@@ -10,8 +10,9 @@ device and are read once per scenario.
 
 Ensembles: a list of train states for one learner; per step the members'
 actions are fused with the strategies of eval/ensemble.py
-(evaluate.py:174-211).  The NEO prior strategies ("prior", "bcf") wait for
-ROADMAP item 12.
+(evaluate.py:174-211), fused with the NEO prior (strategy="bcf",
+fuse_controllers, evaluate.py:33-40) or replaced by it (strategy="prior",
+evaluate_neo.py, which needs no members).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 from panda_gym_tpu_torch.envs.core import _hi_prec
 from panda_gym_tpu_torch.eval import ensemble as fusion
 from panda_gym_tpu_torch.ops import kinematics as K
+from panda_gym_tpu_torch.ops.neo import compute_action_neo
 from panda_gym_tpu_torch.rl.networks import flatten_obs
 
 BENCHMARK_SCENARIOS = [
@@ -43,28 +45,44 @@ STRATEGIES = (None, "mean", "confidence", "weighted_aggregation",
               "bayesian_fusion", "prior", "bcf")
 
 
-def make_policy(learner, ts_list: Sequence, strategy: Optional[str] = None):
-    """x -> action: the members' deterministic actions (K, B, A) and stds
-    (learner.act_with_std) fused by ``strategy`` (evaluate.py:174-211)."""
-    if strategy in ("prior", "bcf"):
-        raise NotImplementedError(
-            f"strategy {strategy!r} needs the NEO prior (ops/neo.py), not "
-            "ported yet (ROADMAP item 12)")
+def make_policy(learner, ts_list: Sequence, strategy: Optional[str] = None,
+                core=None, prior_sigma: float = 0.3):
+    """(x, states) -> action: the members' deterministic actions (K, B, A)
+    and stds (learner.act_with_std) fused by ``strategy``
+    (evaluate.py:174-211); "prior" and "bcf" also take NEO's command on the
+    states of ``core``'s envs (benchmark.py:55-95)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy}")
-    if not ts_list:
-        raise ValueError("no learner checkpoints to evaluate")
+    if not ts_list and strategy != "prior":
+        raise ValueError("no learner checkpoints; only strategy='prior' "
+                         "works without models (evaluate_neo.py:18-92)")
+    if strategy in ("prior", "bcf") and core is None:
+        raise ValueError(f"strategy {strategy!r} needs the env core")
 
-    def policy(x):
+    def prior_action(states):
+        # raw NEO joint velocities, like evaluate.py:160/192: the env's own
+        # action limiter acts on them
+        fk = K.fk_world(core.model, states.q)
+        return compute_action_neo(core.model, core.robot.ee_site, states, fk,
+                                  states.goal)
+
+    def policy(x, states=None):
+        if strategy == "prior":
+            return prior_action(states)
         pairs = [learner.act_with_std(ts, x) for ts in ts_list]
         means = torch.stack([m for m, _ in pairs])
-        var = torch.stack([s for _, s in pairs]) ** 2
+        stds = torch.stack([s for _, s in pairs])
+        var = stds ** 2
         if strategy in (None, "mean"):
             return fusion.mean(means)
         if strategy == "weighted_aggregation":
             return fusion.weighted_aggregation(var, means)
         if strategy == "bayesian_fusion":
             return fusion.bayesian_fusion(means, var)
+        if strategy == "bcf":
+            return fusion.fuse_controllers(prior_action(states), prior_sigma,
+                                           fusion.mean(means),
+                                           stds.mean(0))[0]
         return fusion.confidence(means, var)[0]
 
     return policy
@@ -92,10 +110,11 @@ def _step_metrics(core, states, reward, info, done):
 @torch.no_grad()
 def run_episodes(core, policy: Callable, states, obs, horizon: int):
     """Step every episode from the given states and observations for up to
-    ``horizon`` steps; an episode that terminates or truncates keeps its
-    last state.  Returns (done (B,), ep_len (B,), metrics: name -> (T, B)
-    per-step tensors on the device), T <= horizon: the loop stops once
-    every episode has ended (checked every DONE_CHECK_EVERY steps)."""
+    ``horizon`` steps, each action policy(x, states); an episode that
+    terminates or truncates keeps its last state.  Returns (done (B,),
+    ep_len (B,), metrics: name -> (T, B) per-step tensors on the device),
+    T <= horizon: the loop stops once every episode has ended (checked
+    every DONE_CHECK_EVERY steps)."""
     B = states.batch_size
     done = torch.zeros(B, dtype=torch.bool, device=core.device)
     ep_len = torch.zeros(B, dtype=torch.int32, device=core.device)
@@ -104,7 +123,7 @@ def run_episodes(core, policy: Callable, states, obs, horizon: int):
         if t and t % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
         nstates, nobs, reward, term, trunc, info = core.batched_step(
-            states, policy(flatten_obs(obs)))
+            states, policy(flatten_obs(obs), states))
         states = states.replace(**{
             k: torch.where(done.reshape((-1,) + (1,) * (v.dim() - 1)),
                            getattr(states, k), v)
@@ -151,10 +170,11 @@ def summarize(ep_len, metrics, n_substeps: int) -> Dict[str, float]:
 def perform_benchmark(learner, ts_list: Sequence, core,
                       n_episodes: int = 100, horizon: int = 300,
                       strategy: Optional[str] = None,
+                      prior_sigma: float = 0.3,
                       seed: int = 0) -> Dict[str, float]:
     """Batched evaluation of ``n_episodes`` episodes reset from ``seed``;
     returns the reference's results schema."""
-    policy = make_policy(learner, ts_list, strategy)
+    policy = make_policy(learner, ts_list, strategy, core, prior_sigma)
     gen = torch.Generator(device=core.device).manual_seed(seed)
     states, obs = core.batched_reset(n_episodes, gen)
     _, ep_len, m = run_episodes(core, policy, states, obs, horizon)
@@ -164,12 +184,14 @@ def perform_benchmark(learner, ts_list: Sequence, core,
 def evaluate_scenarios(learner, ts_list, make_core: Callable[[str], object],
                        scenarios: Sequence[str], n_episodes: int = 100,
                        horizon: int = 300, strategy: Optional[str] = None,
+                       prior_sigma: float = 0.3,
                        seed: int = 0) -> Dict[str, Dict[str, float]]:
     """Benchmark over the reference's scenario table
     (setup_training.py:334-381 benchmark_model / evaluate.py:361-379)."""
     return {sc: perform_benchmark(learner, ts_list, make_core(sc),
                                   n_episodes=n_episodes, horizon=horizon,
-                                  strategy=strategy, seed=seed)
+                                  strategy=strategy, prior_sigma=prior_sigma,
+                                  seed=seed)
             for sc in scenarios}
 
 

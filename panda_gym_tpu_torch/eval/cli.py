@@ -9,6 +9,10 @@ optionally fusing an ensemble, and write the results table.
     # an ensemble of runs with Bayesian fusion
     python -m panda_gym_tpu_torch.eval.cli run1 run2 --strategy bayesian_fusion
 
+    # the NEO prior alone, under TrainConfig() (evaluate_neo.py)
+    python -m panda_gym_tpu_torch.eval.cli --strategy prior \\
+        --scenarios reachao_rand_start
+
     # a routed policy, the counterpart of tools/build_router.py
     # --benchmark-only: per-scene part files merged into <out>/benchmark.json
     python -m panda_gym_tpu_torch.eval.cli \\
@@ -43,8 +47,12 @@ def parse_args(argv=None):
     p.add_argument("--episodes", type=int, default=100)
     p.add_argument("--horizon", type=int, default=300)
     p.add_argument("--strategy", default=None, choices=EB.STRATEGIES,
-                   help="ensemble fusion strategy (action_selection.py); "
-                        "'prior' and 'bcf' wait for ROADMAP item 12")
+                   help="ensemble fusion / prior strategy "
+                        "(action_selection.py); 'prior' needs no run dirs")
+    p.add_argument("--prior-sigma", type=float, default=0.3,
+                   help="NEO-prior confidence for BCF fusion (smaller = "
+                        "trust the prior more; fuse_controllers "
+                        "evaluate.py:33-40)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None,
                    help="output path prefix (default <first run>/benchmark); "
@@ -119,6 +127,21 @@ def load_members(run_dirs, device):
     return cfg, learner, ts_list
 
 
+def benchmark_scene(learner, ts_list, make_core, sc, args):
+    """perform_benchmark on scene ``sc`` under the CLI's options; prints
+    the scene's rates and wall time."""
+    t0 = time.perf_counter()
+    res = EB.perform_benchmark(learner, ts_list, make_core(sc),
+                               n_episodes=args.episodes, horizon=args.horizon,
+                               strategy=args.strategy,
+                               prior_sigma=args.prior_sigma, seed=args.seed)
+    print(f"  {sc:>20s} success={res['success_rate']:.2f} "
+          f"collision={res['collision_rate']:.2f} "
+          f"mean_ep_length={res['mean_ep_length']:.2f} "
+          f"wall={time.perf_counter() - t0:.1f}s", flush=True)
+    return res
+
+
 def run_routed(args, device, scenarios):
     """tools/build_router.py --benchmark-only: one RoutedLearner over the
     routed policy, a part file per scene, merged into <out>/benchmark.json
@@ -136,15 +159,7 @@ def run_routed(args, device, scenarios):
     os.makedirs(parts, exist_ok=True)
     learner = RoutedLearner()
     for sc in scenarios:
-        t0 = time.perf_counter()
-        res = EB.perform_benchmark(learner, [policy], make_core(sc),
-                                   n_episodes=args.episodes,
-                                   horizon=args.horizon, strategy=args.strategy,
-                                   seed=args.seed)
-        print(f"  {sc:>20s} success={res['success_rate']:.2f} "
-              f"collision={res['collision_rate']:.2f} "
-              f"mean_ep_length={res['mean_ep_length']:.2f} "
-              f"wall={time.perf_counter() - t0:.1f}s", flush=True)
+        res = benchmark_scene(learner, [policy], make_core, sc, args)
         # part files: calls over scenario subsets never clobber each other
         with open(os.path.join(parts, f"{sc}.json"), "w") as f:
             json.dump(res, f, indent=1)
@@ -167,21 +182,27 @@ def run_routed(args, device, scenarios):
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.runs and not args.routed:
-        raise SystemExit("need at least one run dir, or --routed")
+    if not args.runs and not args.routed and args.strategy != "prior":
+        raise SystemExit("need at least one run dir, --routed or "
+                         "--strategy prior")
     from panda_gym_tpu_torch.envs.core import resolve_device
 
     device = resolve_device(args.device)
     scenarios = args.scenarios or EB.BENCHMARK_SCENARIOS
     if args.routed:
         return run_routed(args, device, scenarios)
-    cfg, learner, ts_list = load_members(args.runs, device)
-    results = EB.evaluate_scenarios(
-        learner, ts_list, make_core=make_core_fn(cfg, device),
-        scenarios=scenarios, n_episodes=args.episodes, horizon=args.horizon,
-        strategy=args.strategy, seed=args.seed)
+    if args.runs:
+        cfg, learner, ts_list = load_members(args.runs, device)
+    else:
+        # the prior alone, under the default config (tools/evaluate.py:70)
+        from panda_gym_tpu_torch.rl.config import TrainConfig
+        cfg, learner, ts_list = TrainConfig(), None, []
+    make_core = make_core_fn(cfg, device)
+    results = {sc: benchmark_scene(learner, ts_list, make_core, sc, args)
+               for sc in scenarios}
     EB.display_and_save_benchmark_results(
-        results, args.out or os.path.join(args.runs[0], "benchmark"))
+        results, args.out or os.path.join(
+            args.runs[0] if args.runs else ".", "benchmark"))
     return results
 
 

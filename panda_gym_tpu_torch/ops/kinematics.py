@@ -5,7 +5,7 @@ The JAX functions are single-env and batched with vmap; here every tensor
 carries the env batch as its leading dimension, so one call covers the whole
 batch.  Loops run over the (static, tiny) dof count.  The FK's (3, 3)
 products are fp32 matrix products: callers run them with TF32 off
-(envs/core.py ``_hi_prec``); the Jacobian products of the IK and the
+(ops/linalg.py ``_hi_prec``); the Jacobian products of the IK and the
 manipulability are sums of elementwise products, exact fp32 on any device.
 The IK solves its damped normal equations with the unrolled Cholesky of
 ops/linalg.py, which never synchronizes with the host.
@@ -123,24 +123,36 @@ def capsule_endpoints_world(model: ChainModel, fk: FK):
     return p0, p1
 
 
-def point_jacobian(model: ChainModel, fk: FK, x, body: int):
-    """Geometric Jacobian of world points x (B, 3) rigidly attached to dof
-    body ``body``: (J_v, J_w), each (B, 3, ndof); the columns of dofs that
-    do not carry the body are zero."""
+def dof_support(model: ChainModel, body: int):
+    """Which dofs carry dof body ``body`` (its ancestor chain), ndof bools."""
     support = [False] * model.ndof
-    b = body
-    while b >= 0:
-        support[b] = True
-        b = model.parent_tuple[b]
-    revolute = [model.jtype_tuple[d] == JOINT_REVOLUTE for d in range(model.ndof)]
+    while body >= 0:
+        support[body] = True
+        body = model.parent_tuple[body]
+    return support
+
+
+def point_jacobian(model: ChainModel, fk: FK, x, body):
+    """Geometric Jacobian of world points x (B, ..., 3) rigidly attached to
+    dof bodies: ``body`` is one body index for every point, or a bool mask
+    (..., ndof) of the dofs that carry each point's body (``dof_support``).
+    Returns (J_v, J_w): J_v (B, ..., 3, ndof), J_w the same for one body and
+    broadcastable to it for a mask; the columns of dofs that do not carry
+    the body are zero."""
     dev = x.device
-    sup = torch.tensor(support, device=dev)[:, None]
+    if isinstance(body, int):
+        body = torch.tensor(dof_support(model, body), device=dev)
+    revolute = [model.jtype_tuple[d] == JOINT_REVOLUTE for d in range(model.ndof)]
     rev = torch.tensor(revolute, device=dev)[:, None]
-    # (B, ndof, 3): a revolute dof moves x by a x (x - p), a prismatic by a
-    lin = torch.where(rev, torch.linalg.cross(fk.a, x[:, None] - fk.p), fk.a)
-    ang = torch.where(rev, fk.a, 0.0)
-    J_v = torch.where(sup, lin, 0.0).transpose(1, 2)
-    J_w = torch.where(sup, ang, 0.0).transpose(1, 2)
+    sup = body[..., None]
+    # (B, ..., ndof, 3): a revolute dof moves x by a x (x - p), a prismatic by a
+    lead = (x.shape[0],) + (1,) * (x.dim() - 2) + fk.a.shape[1:]
+    a, p = fk.a.reshape(lead), fk.p.reshape(lead)
+    r = x[..., None, :] - p
+    lin = torch.where(rev, torch.linalg.cross(a.expand_as(r), r), a)
+    ang = torch.where(rev, a, 0.0)
+    J_v = torch.where(sup, lin, 0.0).transpose(-1, -2)
+    J_w = torch.where(sup, ang, 0.0).transpose(-1, -2)
     return J_v, J_w
 
 
@@ -156,14 +168,18 @@ def _gram(J):
     return (J[:, :, None, :] * J[:, None, :, :]).sum(-1)
 
 
+def det3(A):
+    """Determinants of (B, 3, 3) matrices in closed form, (B,)."""
+    return (A[:, 0, 0] * (A[:, 1, 1] * A[:, 2, 2] - A[:, 1, 2] * A[:, 2, 1])
+            - A[:, 0, 1] * (A[:, 1, 0] * A[:, 2, 2] - A[:, 1, 2] * A[:, 2, 0])
+            + A[:, 0, 2] * (A[:, 1, 0] * A[:, 2, 1] - A[:, 1, 1] * A[:, 2, 0]))
+
+
 def manipulability(model: ChainModel, ee_site: int, q, n_arm: int = 7):
     """Yoshikawa translational manipulability sqrt(det(Jv Jv^T)), (B,),
     with the 3x3 determinant in closed form."""
     J_v, _ = ee_jacobian(model, ee_site, q)
-    A = _gram(J_v[..., :n_arm])
-    det = (A[:, 0, 0] * (A[:, 1, 1] * A[:, 2, 2] - A[:, 1, 2] * A[:, 2, 1])
-           - A[:, 0, 1] * (A[:, 1, 0] * A[:, 2, 2] - A[:, 1, 2] * A[:, 2, 0])
-           + A[:, 0, 2] * (A[:, 1, 0] * A[:, 2, 1] - A[:, 1, 1] * A[:, 2, 0]))
+    det = det3(_gram(J_v[..., :n_arm]))
     return torch.sqrt(torch.clamp_min(det, 0.0))
 
 

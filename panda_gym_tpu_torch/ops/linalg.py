@@ -4,11 +4,33 @@ panda_gym_tpu/ops/linalg.py).
 For the tiny static sizes of the IK's damped normal equations (3×3 or 6×6)
 an index-unrolled Cholesky is a fixed chain of elementwise operations over
 the batch.  ``torch.linalg.solve`` would check its ``info`` result and so
-synchronize with the host on every call on the card.
+synchronize with the host on every call on the card.  ``_hi_prec`` runs a
+function with TF32 off, as the physics, the kinematics and the QPs need.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+def _hi_prec(fn):
+    """Run ``fn`` with TF32 off for fp32 matrix products and convolutions,
+    as panda_gym_tpu/envs/core.py:29-43 runs the JAX physics at "highest" precision; the
+    previous settings are restored afterwards."""
+
+    @functools.wraps(fn)
+    def wrapped(*a, **kw):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return fn(*a, **kw)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+    return wrapped
 
 
 def cholesky_solve_unrolled(M, b, eps: float = 1e-9):

@@ -9,8 +9,9 @@ Options keep tools/train.py's names.  Training runs on the card unless
 ``--device cpu`` is given; without a card it raises.  ``--benchmark``
 scores the best evaluation snapshot (else the final learner) on the
 reference's 13-scene protocol afterwards (eval/benchmark.py, horizon 300),
-written to <run dir>/benchmark.json and .csv.  ``--prior-steps`` waits for
-the prior (ROADMAP item 12) and raises.  ``--benchmark-eval-scenes`` sets
+written to <run dir>/benchmark.json and .csv.  ``--prior-steps N`` fills
+the replay buffer with ceil(N / (n_envs * horizon)) episode batches of the
+NEO prior before the first collect.  ``--benchmark-eval-scenes`` sets
 TrainConfig.benchmark_eval_scenes, the scenes evaluated in the final stage
 (default: TrainConfig's five).
 """
@@ -62,7 +63,8 @@ def parse_args(argv=None):
     p.add_argument("--collision-reward", type=float, default=-100.0)
     p.add_argument("--safety-distance", type=float, default=0.0)
     p.add_argument("--prior-steps", type=int, default=0,
-                   help="not ported yet (ROADMAP item 12): > 0 raises")
+                   help="NEO-prior imitation transitions to prefill the "
+                        "replay buffer with (0 = off)")
     p.add_argument("--eval-freq", type=int, default=10_000)
     p.add_argument("--n-eval-episodes", type=int, default=100)
     p.add_argument("--benchmark-eval-scenes", nargs="*", default=None,
@@ -95,10 +97,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.prior_steps > 0:
-        raise NotImplementedError(
-            "--prior-steps needs rl/imitation.py, not ported yet (ROADMAP "
-            "item 12)")
 
     from panda_gym_tpu_torch.envs.core import resolve_device
     from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
@@ -118,6 +116,7 @@ def main(argv=None):
         max_ep_steps=list(args.max_ep_steps),
         max_timesteps=args.max_timesteps,
         learning_starts=args.learning_starts,
+        prior_steps=args.prior_steps,
         reward_type=args.reward_type, control_type=args.control_type,
         goal_condition=args.goal_condition,
         collision_reward=args.collision_reward,

@@ -14,8 +14,9 @@ The learner and the buffer live on the env core's device, so training runs
 on the card unless the caller builds its envs on the CPU.  One
 ``torch.Generator`` on that device takes the place of the key chain; the
 full-state checkpoint stores its state, so that a kill and resume
-reproduces the uninterrupted run.  Not ported yet: the device mesh
-(ROADMAP item 17) and the prior bootstrap (item 12).
+reproduces the uninterrupted run.  With ``prior_steps`` the buffer is
+filled with NEO prior rollouts (rl/imitation.py) before the first collect.
+Not ported yet: the device mesh (ROADMAP item 17).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from panda_gym_tpu_torch.rl.checkpoint import (CheckpointManager,
                                                load_checkpoint,
                                                save_checkpoint)
 from panda_gym_tpu_torch.rl.config import TrainConfig
+from panda_gym_tpu_torch.rl.imitation import fill_buffer_with_prior
 from panda_gym_tpu_torch.rl.learners import (align_sde_with_ckpt,
                                              load_state, make_learner,
                                              save_state)
@@ -82,10 +84,13 @@ class VectorEnv:
     def batch_reset(self, generator):
         return self.core.batched_reset(self.n_envs, generator)
 
-    def rollout_episode(self, learner, ts, generator, deterministic=False):
-        """One episode batch: (episodes, stats)."""
-        episodes, stats, _, _ = self._rollout_episode(learner, ts, generator,
-                                                      deterministic)
+    def rollout_episode(self, learner, ts, generator, deterministic=False,
+                        policy_fn=None):
+        """One episode batch: (episodes, stats).  ``policy_fn(x, states,
+        generator) -> actions`` overrides the learner (the prior bootstrap,
+        rl/imitation.py)."""
+        episodes, stats, _, _ = self._rollout_episode(
+            learner, ts, generator, deterministic, policy_fn=policy_fn)
         return episodes, stats
 
     def rollout_train(self, learner, ts, buf, generator, update_fn):
@@ -107,18 +112,22 @@ class VectorEnv:
         return learner.sample_expl(ts, generator, self.n_envs)
 
     def env_step(self, learner, ts, states, obs, done, ep_len, generator,
-                 deterministic=False, expl=None):
+                 deterministic=False, expl=None, policy_fn=None):
         """One env step of the rollout (the body of train.py:162-204's
-        scan): act, step, freeze the finished envs in state and obs with
-        reward 0 after ``done``, aux from the kept state, and ``terminated``
-        true only on the step that ends the episode (a collision too: it is
-        terminal for the Bellman target, train.py:190-197)."""
+        scan): act (``policy_fn`` in place of the learner when given),
+        step, freeze the finished envs in state and obs with reward 0 after
+        ``done``, aux from the kept state, and ``terminated`` true only on
+        the step that ends the episode (a collision too: it is terminal for
+        the Bellman target, train.py:190-197)."""
         core = self.core
-        noise = None
-        if not deterministic and expl is None:
-            noise = learner.act_noise(generator, self.n_envs)
-        action = learner.act(ts, flat_x(obs), noise,
-                             deterministic=deterministic, expl=expl)
+        if policy_fn is not None:
+            action = policy_fn(flat_x(obs), states, generator)
+        else:
+            noise = None
+            if not deterministic and expl is None:
+                noise = learner.act_noise(generator, self.n_envs)
+            action = learner.act(ts, flat_x(obs), noise,
+                                 deterministic=deterministic, expl=expl)
         nstates, nobs, reward, term, trunc, info = core.batched_step(
             states, action)
         step_done = term | trunc
@@ -136,14 +145,15 @@ class VectorEnv:
         return states, obs, done | step_done, ep_len, out
 
     def _rollout_episode(self, learner, ts, generator, deterministic=False,
-                         buf=None, update_fn=None):
+                         buf=None, update_fn=None, policy_fn=None):
         """One synchronous episode batch of ``horizon`` steps
         (train.py:139-238).  Returns the episode tensors shaped for
         HerBuffer, (N, T+1, ...) observations with the initial one, the
         episode stats, the TrainState and the last burst's metrics (with
         ``update_fn``, a burst after each env step, its TrainState carried
-        into the next step's action)."""
-        expl = (None if deterministic
+        into the next step's action).  No exploration matrices are drawn
+        when ``policy_fn`` acts."""
+        expl = (None if deterministic or policy_fn is not None
                 else self._sample_expl(learner, ts, generator))
         states, obs0 = self.batch_reset(generator)
         obs = obs0
@@ -154,7 +164,7 @@ class VectorEnv:
         for _ in range(self.horizon):
             states, obs, done, ep_len, out = self.env_step(
                 learner, ts, states, obs, done, ep_len, generator,
-                deterministic, expl)
+                deterministic, expl, policy_fn)
             traj.append(out)
             if update_fn is not None:
                 ts, metrics = update_fn(ts, buf, generator)
@@ -239,10 +249,6 @@ class Trainer:
     def __init__(self, config: TrainConfig,
                  make_env: Callable[[str, float, float], RobotTaskEnv],
                  logger=None):
-        if config.prior_steps > 0:
-            raise NotImplementedError(
-                "the prior bootstrap (prior_steps > 0) needs rl/imitation.py, "
-                "not ported yet (ROADMAP item 12)")
         self.config = config
         self.make_env = make_env
         self.logger = logger
@@ -362,6 +368,14 @@ class Trainer:
                 bench_venvs[scene] = VectorEnv(
                     self.make_env(scene, ee_thr, sp_thr), cfg.n_envs, horizon)
                 bench_best[scene] = -1.0
+
+        # the NEO prior bootstrap before any learning (setup_training.py:
+        # 219-222 -> imitation_learning.py:6-56): whenever the buffer holds
+        # nothing yet, fresh runs and resumes without a buffer alike
+        if cfg.prior_steps > 0 and self.buffer.n_stored == 0:
+            n_roll = max(1, -(-cfg.prior_steps // (cfg.n_envs * horizon)))
+            self.buffer, _ = fill_buffer_with_prior(venv, self.buffer, gen,
+                                                    n_rollouts=n_roll)
 
         def step_update(ts, buf, generator):
             return self.update_burst(ts, buf, generator, sched.n_upd_per_step,

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: kernel K1 against its plain version,
 the batched Reach and ReachAO envs, the trainer (HER sample and TQC
-update against the CPU, a short Reach run) and the batched IK of the
-evaluation's start poses (against the CPU) on the card.
+update against the CPU, a short Reach run), the batched IK of the
+evaluation's start poses (against the CPU), and the paths of the NEO prior
+and the ee/pcc control modes (against the CPU) on the card.
 
 Run on a machine with an NVIDIA card (tests/conftest.py imports JAX, which
 such a machine need not have, so it is skipped):
@@ -285,3 +286,106 @@ def test_reach_trainer_runs_on_card(card, tmp_path):
             assert v.device.type == "cuda", k
         assert torch.isfinite(v).all(), k
     assert tr.buffer.device.type == "cuda" and tr.buffer.n_stored == 1024
+
+
+# ------------------------------------------------- the prior, ee and pcc
+
+def _to_cpu(states):
+    return states.replace(**{k: getattr(states, k).cpu()
+                             for k in states.__dataclass_fields__})
+
+
+def test_admm_card_matches_cpu(card):
+    """The batched ADMM on 256 random NEO-sized problems (13 variables, 75
+    rows): the card's solution within 1e-5 of the CPU's."""
+    from panda_gym_tpu_torch.ops.qp import solve_qp_admm
+
+    rng = np.random.default_rng(5)
+    B, n, m = 256, 13, 75
+    M = rng.normal(size=(B, n, n))
+    P = [np.einsum("bij,bkj->bik", M, M) / n + 0.01 * np.eye(n),
+         rng.normal(size=(B, n)), rng.normal(size=(B, m, n)),
+         rng.uniform(-2, -0.1, (B, m)), rng.uniform(0.1, 2, (B, m))]
+    P = [torch.as_tensor(a, dtype=torch.float32) for a in P]
+    x_cpu, _ = _hi_prec(solve_qp_admm)(*P)
+    x, _ = _hi_prec(solve_qp_admm)(*[a.to(card) for a in P])
+    assert (x.cpu() - x_cpu).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("scene", ["reachao1", "tunnel", "industrial"])
+def test_neo_card_matches_cpu(card, scene):
+    """NEO on 256 reset envs, env 0 with an obstacle ~0.1 m from its end
+    effector: the card's command within 1e-4 of the CPU's on every env but
+    at most 2 (damper-edge ties; chip_smoke phase 10b tells them apart)."""
+    from panda_gym_tpu_torch.ops.neo import compute_action_neo
+
+    env = make_reach_ao_core(scene)
+    states, obs = env.batched_reset(256, torch.Generator(card).manual_seed(0))
+    opos = states.obstacle_pos.clone()
+    opos[0, 0] = obs["achieved_goal"][0] + torch.tensor([0.0, 0.1, 0.1],
+                                                         device=card)
+    states = states.replace(obstacle_pos=opos)
+
+    def neo(s):
+        return compute_action_neo(env.model, env.robot.ee_site, s,
+                                  K.fk_world(env.model, s.q), s.goal)
+
+    with torch.no_grad():
+        qd = neo(states)
+    qd_cpu = neo(_to_cpu(states))
+    assert qd.device.type == "cuda" and torch.isfinite(qd).all()
+    assert int(((qd.cpu() - qd_cpu).abs() > 1e-4).any(1).sum()) <= 2
+
+
+@pytest.mark.parametrize("control", ["ee", "pcc"])
+def test_control_modes_card_match_cpu(card, control):
+    """Two Reach steps at B = 512 from the same states and actions: q within
+    1e-5 and the observation within 2e-4 of the CPU's, K1 once per step."""
+    env, env_cpu = (make_core("reach", control_type=control, device=d)
+                    for d in (card, "cpu"))
+    gen = torch.Generator(card).manual_seed(1)
+    s, _ = env.batched_reset(512, gen)
+    s_cpu = _to_cpu(s)
+    for _ in range(2):
+        a = torch.rand(512, env.robot.action_dim, generator=gen,
+                       device=card) * 2 - 1
+        s, o, *_ = env.batched_step(s, a)
+        s_cpu, o_cpu, *_ = env_cpu.batched_step(s_cpu, a.cpu())
+        assert (s.q.cpu() - s_cpu.q).abs().max().item() <= 1e-5
+        assert ((o["observation"].cpu() - o_cpu["observation"]).abs().max()
+                .item() <= 2e-4)
+    assert env.physics_step_batched.motor.launches == 2
+
+
+def test_prior_paths_run_on_card(card, tmp_path):
+    """The prior observation, the trainer's bootstrap and the prior
+    strategy, each on the card: the observation grows by 7, the bootstrap
+    fills the buffer (20 K1 launches per env step), the evaluation's rates
+    sum to 1."""
+    from panda_gym_tpu_torch.eval import benchmark as EB
+
+    cfg = TrainConfig(task_observations={
+        "obstacles": "vectors+closest_per_link", "prior": "rrmc_neo"})
+    env = make_reach_ao_core("reachao1", config=cfg)
+    s, obs = env.batched_reset(64, torch.Generator(card).manual_seed(0))
+    assert obs["observation"].shape == (64, 63)
+    cfg = TrainConfig(n_envs=64, stages=["tunnel"], max_ep_steps=[5],
+                      prior_steps=320, max_timesteps=160, learning_starts=1,
+                      eval_freq=10 ** 9, benchmark_eval_scenes=[])
+    cfg.hyperparams.policy_kwargs = dict(log_std_init=-3, net_arch=[64, 64])
+    cores = []
+
+    def make_env(scene, thr, spd):
+        cores.append(make_reach_ao_core(scene, config=cfg))
+        return cores[-1]
+
+    tr = Trainer(cfg, make_env, logger=RunLogger(root=str(tmp_path)))
+    tr.learn(seed=0)
+    assert tr.buffer.n_stored >= 128 and tr.buffer.device.type == "cuda"
+    core = make_reach_ao_core("reachao_rand_start")
+    res = EB.perform_benchmark(None, [], core, n_episodes=16, horizon=5,
+                               strategy="prior")
+    rates = [res[k] for k in ("success_rate", "collision_rate",
+                              "timeout_rate")]
+    assert abs(sum(rates) - 1.0) < 1e-9
+    assert core.physics_step_batched.motor.launches == 20 * 5

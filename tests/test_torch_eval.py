@@ -8,10 +8,11 @@ router 62 -> 128 -> 128 -> 10) on observations of reset benchmark scenes.
 Tolerances: fusion atol 1e-6; routed actions rtol 1e-5 / atol 1e-6, the
 router's choices equal where its top two logits differ by more than 1e-5;
 perform_benchmark from JAX's own reset states (reachao1 and narrow_tunnel,
-4 episodes, 6 steps, the JAX side eager): episode outcomes equal,
-continuous metrics rtol 1e-4.
+4 episodes, 6 steps; the prior strategies on reachao1, 8 steps; the JAX
+side eager): episode outcomes equal, continuous metrics rtol 1e-4.
 """
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -26,6 +27,8 @@ from panda_gym_tpu.envs.tasks import reach_ao as jrao
 from panda_gym_tpu.eval import benchmark as JB
 from panda_gym_tpu.eval import ensemble as jfusion
 from panda_gym_tpu.eval import router as JR
+from panda_gym_tpu.ops import kinematics as JK
+from panda_gym_tpu.ops import neo as JN
 from panda_gym_tpu.rl import learners as JL
 from panda_gym_tpu.rl.config import Hyperparameters as JHyperparameters
 from panda_gym_tpu.rl.logging_utils import load_run as jload_run
@@ -320,6 +323,58 @@ def test_perform_benchmark_matches_jax(routed, monkeypatch, scenario):
     assert all(v.shape == (horizon, n) for v in m.values())
 
 
+@pytest.mark.parametrize("strategy", ["prior", "bcf"])
+def test_prior_strategies_match_jax(routed, monkeypatch, strategy):
+    """JAX's perform_benchmark with the NEO prior alone (no members,
+    evaluate_neo.py) and fused with the routed generalist (bcf, prior_sigma
+    0.3), 4 episodes, 8 steps on reachao1, eager, against the port's
+    run_episodes + summarize from JAX's own reset states, as
+    test_perform_benchmark_matches_jax does."""
+    jpolicy, _, tpolicy, jrl, _ = routed
+    n, horizon, seed = 4, 8, 0
+    cfg = load_config(os.path.join(ASSET, "config.json"))
+    cfg.safety_distance = 0.0
+    jcfg, _ = jload_run(ASSET)
+    jcfg.safety_distance = 0.0
+    kw = lambda c: dict(config=c, ee_error_threshold=c.ee_error_thresholds[-1],
+                        speed_threshold=c.speed_thresholds[-1])
+    jcore = jrao.make_reach_ao_core("reachao1", **kw(jcfg))
+    tcore = trao.make_reach_ao_core("reachao1", device="cpu", **kw(cfg))
+    members = ([jpolicy], [tpolicy]) if strategy == "bcf" else ([], [])
+    monkeypatch.setattr(jcore, "reset", jax.jit(jcore.reset))
+    keys = jax.random.split(
+        jax.random.fold_in(jax.random.PRNGKey(seed), 1), n)
+    jstates, jobs = jax.vmap(jcore.reset)(keys)
+    # JAX's NEO compiled, and traced before scan becomes a loop (its 60
+    # ADMM iterations take minutes eagerly)
+    neo = jax.jit(functools.partial(JN.compute_action_neo, jcore.model,
+                                    jcore.robot.ee_site))
+    fks = jax.vmap(lambda s: JK.fk_world(jcore.model, s.q, s.qd))(jstates)
+    jax.vmap(neo)(jstates, fks, jstates.goal)
+    monkeypatch.setattr(JN, "compute_action_neo",
+                        lambda model, ee_site, *a: neo(*a))
+    monkeypatch.setattr(jax.lax, "scan", _scan_loop)
+    monkeypatch.setattr(jax, "jit", lambda f: f)
+    want = JB.perform_benchmark(jrl, members[0], jcore, n_episodes=n,
+                                horizon=horizon, strategy=strategy,
+                                prior_sigma=0.3, seed=seed)
+    monkeypatch.undo()
+    tstates = convert.env_state(
+        {k: np.asarray(getattr(jstates, k)) for k in convert.FIELDS}, "cpu")
+    tobs = {k: torch.tensor(np.asarray(v)) for k, v in jobs.items()}
+    policy = TB.make_policy(TR.RoutedLearner(), members[1], strategy, tcore,
+                            prior_sigma=0.3)
+    _, ep_len, m = TB.run_episodes(tcore, policy, tstates, tobs, horizon)
+    got = TB.summarize(ep_len, m, tcore.n_substeps)
+    assert list(got) == list(want)
+    for k in OUTCOMES:
+        assert got[k] == want[k], k
+    for k in set(got) - set(OUTCOMES):
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL_METRIC,
+                                   err_msg=k)
+    assert got["mean_ee_speed"] > 0
+
+
 @pytest.mark.slow
 def test_episodes_match_jax_over_a_long_horizon(routed):
     """library2 (the scene where the port's protocol passes collided most
@@ -362,7 +417,7 @@ def test_run_episodes_masks_done_episodes_and_stops_early():
     opos = states.obstacle_pos.clone()
     opos[:, 0] = obs["achieved_goal"]          # every env collides at once
     states = states.replace(obstacle_pos=opos)
-    policy = lambda x: torch.zeros(x.shape[0], 7)
+    policy = lambda x, states: torch.zeros(x.shape[0], 7)
     done, ep_len, m = TB.run_episodes(core, policy, states, obs, 50)
     assert done.all() and (ep_len == 1).all()
     assert m["active"].shape == (TB.DONE_CHECK_EVERY, 3)
@@ -383,7 +438,7 @@ def test_perform_benchmark_schema():
     ts = [learner.init(torch.Generator().manual_seed(s)) for s in range(2)]
     keys = None
     for strategy in (None, "mean", "confidence", "weighted_aggregation",
-                     "bayesian_fusion"):
+                     "bayesian_fusion", "prior", "bcf"):
         res = TB.perform_benchmark(learner, ts, core, n_episodes=3,
                                    horizon=2, strategy=strategy, seed=1)
         keys = keys or list(res)
@@ -396,9 +451,12 @@ def test_perform_benchmark_schema():
                     "timeout_rate", "mean_ep_length", "mean_num_sim_steps",
                     "mean_effort", "mean_jerk", "mean_manipulability",
                     "mean_ee_speed", "mean_reward"]
-    for strategy in ("prior", "bcf"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            TB.perform_benchmark(learner, ts, core, strategy=strategy)
+    # the prior alone needs no members; the other strategies do
+    res = TB.perform_benchmark(None, [], core, n_episodes=3, horizon=2,
+                               strategy="prior", seed=1)
+    assert list(res) == keys
+    with pytest.raises(ValueError, match="no learner checkpoints"):
+        TB.perform_benchmark(learner, [], core, strategy="bcf")
     with pytest.raises(ValueError):
         TB.perform_benchmark(learner, ts, core, strategy="nope")
     assert TB.BENCHMARK_SCENARIOS == JB.BENCHMARK_SCENARIOS
@@ -490,3 +548,21 @@ def test_eval_cli_runs(tmp_path):
                      "2", "--device", "cpu"])
     assert res["wall"]["scenario_episodes"] == 2
     assert os.path.exists(os.path.join(run, "benchmark.json"))
+
+
+def test_eval_cli_prior(tmp_path):
+    """--strategy prior runs without run dirs, under TrainConfig()
+    (tools/evaluate.py:65-66, 70); bcf fuses a run with the prior at
+    --prior-sigma; neither run dirs nor --routed nor the prior exits."""
+    res = ecli.main(["--strategy", "prior", "--scenarios",
+                     "reachao_rand_start", "--episodes", "2", "--horizon",
+                     "3", "--device", "cpu", "--out", str(tmp_path / "neo")])
+    assert res["reachao_rand_start"]["scenario_episodes"] == 2
+    assert (tmp_path / "neo.json").exists()
+    res = ecli.main([R4_GEN, "--strategy", "bcf", "--prior-sigma", "0.1",
+                     "--scenarios", "reachao1", "--episodes", "2",
+                     "--horizon", "2", "--device", "cpu", "--out",
+                     str(tmp_path / "bcf")])
+    assert res["reachao1"]["scenario_episodes"] == 2
+    with pytest.raises(SystemExit, match="strategy prior"):
+        ecli.main(["--device", "cpu"])

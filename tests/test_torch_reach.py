@@ -160,8 +160,6 @@ def test_moving_obstacles_advance():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         make_core("push", device="cpu")
-    with pytest.raises(NotImplementedError):
-        PandaRobot(PandaConfig(control_type="ee"))
     env = make_core("reach", device="cpu")
     scene = build_scene([dict(shape=0, size=(0.02,) * 3, mass=1.0)],
                         1.1, 0.7, 0.4)

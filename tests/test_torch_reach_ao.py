@@ -440,10 +440,7 @@ def test_random_base_pose_and_moving_obstacles():
 
 
 def test_unported_options_raise():
-    cfg = tcfg.TrainConfig()
-    cfg.task_observations = {"obstacles": "closest", "prior": "neo"}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        trao.make_reach_ao_core("reachao1", cfg, device="cpu")
+    # the prior observation is ported (test_prior_observation_matches_jax)
     # the IK pose randomizers are ported (test_ik_start_scenes_reset)
     for name in ("reachao_rand_start", "narrow_tunnel", "tunnel_rs"):
         trao.make_reach_ao_core(name, device="cpu")
@@ -598,3 +595,55 @@ def test_cuda_device_without_card_raises(monkeypatch):
         trao.make_reach_ao_core("reachao1")
     with pytest.raises(RuntimeError, match="cuda"):
         trao.make_reach_ao_core("reachao2", device="cuda")
+
+
+# ------------------------------------------------------ prior observation
+
+PRIOR_OBS = {"obstacles": "vectors+closest_per_link", "prior": "rrmc_neo"}
+
+
+@pytest.mark.parametrize("name", ["reachao1", "tunnel"])
+def test_prior_observation_matches_jax(name):
+    """With a ``prior``, the task observation ends in NEO's command toward
+    the goal (reach_ao.py:803-810): held against JAX's task_obs on the same
+    states (B = 4, env 0 with an obstacle ~0.1 m from its end effector) at
+    the NEO tolerance, atol and rtol 1e-4; the rest of the observation at
+    1e-6."""
+    jc = jcfg.TrainConfig(task_observations=dict(PRIOR_OBS))
+    tc = tcfg.TrainConfig(task_observations=dict(PRIOR_OBS))
+    jcore = jrao.make_reach_ao_core(name, config=jc)
+    tcore = trao.make_reach_ao_core(name, config=tc, device="cpu")
+    keys = jax.random.split(jax.random.PRNGKey(2), 4)
+    jstates, jobs = jax.jit(jax.vmap(jcore.reset))(keys)
+    opos = np.asarray(jstates.obstacle_pos).copy()
+    opos[0, 0] = np.asarray(jobs["achieved_goal"])[0] + [0.0, 0.1, 0.1]
+    jstates = jstates.replace(obstacle_pos=jnp.asarray(opos, jnp.float32))
+
+    def obs(s):
+        return jcore.task.task_obs(jcore, s, JK.fk_world(jcore.model, s.q,
+                                                         s.qd))
+
+    want = np.asarray(jax.jit(jax.vmap(obs))(jstates))
+    ts = convert.env_state(
+        {k: np.asarray(getattr(jstates, k)) for k in convert.FIELDS}, "cpu")
+    got = tcore.task.task_obs(tcore, ts, TK.fk_world(tcore.model, ts.q, ts.qd))
+    assert got.shape == want.shape == (4, 36 + 7)
+    np.testing.assert_allclose(got[:, :-7].numpy(), want[:, :-7], atol=ATOL)
+    np.testing.assert_allclose(got[:, -7:].numpy(), want[:, -7:], atol=1e-4,
+                               rtol=1e-4)
+    assert got[:, -7:].abs().max() > 1e-3
+
+
+def test_prior_observation_grows_the_obs_and_the_mixture_carries_it():
+    """The observation grows by 7, on a scene and on a mixture core."""
+    tc = tcfg.TrainConfig(task_observations=dict(PRIOR_OBS))
+    for name in ("reachao1", "reachao1+tunnel"):
+        plain = trao.make_reach_ao_core(name, device="cpu")
+        core = trao.make_reach_ao_core(name, config=tc, device="cpu")
+        _, o0 = plain.batched_reset(2, torch.Generator().manual_seed(0))
+        states, o1 = core.batched_reset(2, torch.Generator().manual_seed(0))
+        assert o1["observation"].shape[-1] == o0["observation"].shape[-1] + 7
+        a = torch.zeros(2, 7)
+        _, o2, *_ = core.batched_step(states, a)
+        assert o2["observation"].shape == o1["observation"].shape
+        assert torch.isfinite(o2["observation"]).all()

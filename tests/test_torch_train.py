@@ -13,8 +13,9 @@ and collided exact.  Also the mixture core against JAX's capacity.
 
 The port alone: the schedule against hand-derived numbers, stage advance
 and the final stage with a stubbed evaluate, kill-and-resume bit for bit,
-save / load with and without the buffer, the NotImplementedError paths and
-the CLI (with its --benchmark).
+save / load with and without the buffer, the prior bootstrap, the
+NotImplementedError paths and the CLI (with its --benchmark and
+--prior-steps).
 """
 import json
 import os
@@ -294,9 +295,43 @@ def test_save_and_load(tmp_path):
     assert not tr3.config.hyperparams.use_sde
 
 
-def test_prior_steps_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TT.Trainer(TrainConfig(prior_steps=100), _reach)
+def test_prior_bootstrap_fires_on_an_empty_buffer_only(tmp_path,
+                                                     monkeypatch):
+    """prior_steps > 0: ceil(prior_steps / (n_envs horizon)) NEO rollouts
+    fill the empty buffer before the first collect (train.py:432-442); a
+    full-state resume that restores a buffer skips it, a resume of the
+    learner alone (no buffer) runs it again."""
+    calls = []
+    fill = TT.fill_buffer_with_prior
+
+    def spy(venv, buf, generator, n_rollouts):
+        calls.append((buf.n_stored, n_rollouts, len(tr.metrics.history)))
+        return fill(venv, buf, generator, n_rollouts=n_rollouts)
+
+    monkeypatch.setattr(TT, "fill_buffer_with_prior", spy)
+    cfg = _small_cfg(prior_steps=30, max_timesteps=40)
+    tr = TT.Trainer(cfg, _reach, logger=RunLogger(root=str(tmp_path),
+                                                  name="p"))
+    tr.learn(seed=0)
+    # 30 / (4 envs x 5 steps) -> 2 rollouts, before any collect rollout
+    assert calls == [(0, 2, 0)]
+    assert tr.timesteps == 40          # the prior's steps are not counted
+    assert tr.buffer.n_stored == 2 * 4 + 2 * 4
+    assert tr.ts.step > 0
+    full = os.path.join(tr.logger.dir, "full_state")
+    tr.save(str(tmp_path / "learner.ckpt"))
+
+    calls.clear()
+    tr = TT.Trainer(cfg, _reach)
+    tr.load_full(full)
+    assert tr._resume["buffer"] is not None
+    tr.learn(seed=0)
+    assert calls == []
+
+    tr = TT.Trainer(cfg, _reach)
+    tr.load(str(tmp_path / "learner.ckpt"), restore_buffer=False)
+    tr.learn(seed=0)
+    assert calls == [(0, 2, 0)]
 
 
 def test_mixture_core():
@@ -335,8 +370,6 @@ def test_cli(tmp_path, monkeypatch):
             "--full-ckpt-freq", "4", "--benchmark-eval-scenes",
             "--name", "t"]
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(args + ["--prior-steps", "10"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
@@ -350,6 +383,13 @@ def test_cli(tmp_path, monkeypatch):
     assert cfg["hyperparams"]["policy_kwargs"]["net_arch"] == [32, 32]
     assert cfg["benchmark_eval_scenes"] == []
     assert tr.ts.step >= 1 and tr.buffer.device.type == "cpu"
+    # --prior-steps: ceil(3 / (2 envs x 2 steps)) = 1 NEO rollout of 2
+    # episodes is stored before the run's own
+    tr_p = cli.main(args + ["--device", "cpu", "--name", "p",
+                            "--prior-steps", "3"])
+    assert tr_p.buffer.n_stored == tr.buffer.n_stored + 2
+    assert json.loads((run.parent / "p" / "config.json").read_text())[
+        "prior_steps"] == 3
     # --benchmark scores the best snapshot on the protocol's scenes (here
     # two of them, at a horizon of 2) into <run>/benchmark.json and .csv
     monkeypatch.setattr(EB, "BENCHMARK_SCENARIOS", ["reachao1", "wall"])
