@@ -115,6 +115,26 @@ from B and the card.  Phases, one progress line each:
      at most 16 envs may, each a tie of the reference: the CPU result of
      16 copies of the env, q scaled by 1 + 1e-6 N(0, 1), spreads by more
      than the tolerance and the card agrees with one copy.
+  11. the contact tasks, K1 once per substep with the contact torque
+     tau_ext and the warm active set carried from launch to launch (a seed
+     launch and 20 substep launches per step): make_core("push") at
+     bench.py's B = 16384 and at the trainer's 64, make_core("slide") (ee)
+     at 4096, 5 steps each, the object of envs 0-7 put beside the end
+     effector; checks: K1 rose by exactly 21 per step on the kernel the
+     wrapper picks, the pushed envs have a non-zero tau_ext and their
+     object moved, untouched objects rest on the table (z within 1e-3),
+     everything finite; the K1 route held against the plain route on the
+     first step's states (q 2e-5, qd 2e-3, observation 2e-4, reward 1e-5,
+     at most 16 envs ties: 16 perturbed copies through both routes, the
+     plain copies spread beyond the tolerance and the routes agree on one);
+     the step's median of 10 with its spread and a profile (launches, busy
+     share); reachao1 under PANDA_LCP_WARM=1 at 4096, one step, 21
+     launches, held against the plain warm route by the same rule;
+     Trainer.learn on Push at n_envs 64 with the full-width TQC preset,
+     2560 env steps (21 launches per env step, losses finite, the buffer
+     on the card; ms per collect env step and per TQC update); K1 per warm
+     one-substep launch with tau_ext at B 64, 4096 and 16384 beside its
+     bound.
 
 The line before the last is one JSON object with a row per kernel path
 (K1 on each path above); the last line is {"ok": true, "device": {...}}.
@@ -226,13 +246,15 @@ def motor_inputs(model, B, ctrl_mode, rng, device):
                  for a in (q, qd, tgt))
 
 
-def count_plain_ops(model, ctrl_mode, n_substeps=N_SUBSTEPS, warm_start=True):
+def count_plain_ops(model, ctrl_mode, n_substeps=N_SUBSTEPS, warm_start=True,
+                    step=None):
     """fp32 operations per env and launch of the plain version, counted
     by running it for one env on the CPU under a dispatch mode: every
     elementwise operator call on a (1,) tensor is one operation (arithmetic,
     sqrt, sin, cos, compare, select, logical); views, copies, stacks and
     tensor creation are not counted.  The loops have fixed trip counts, so
-    the count does not depend on the data."""
+    the count does not depend on the data.  ``step(q, qd, target)``, when
+    given, is counted in place of the n-substep motor steps."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from panda_gym_tpu_torch.ops import scalarized as S
@@ -253,9 +275,9 @@ def count_plain_ops(model, ctrl_mode, n_substeps=N_SUBSTEPS, warm_start=True):
                 Count.n += out.numel()
             return out
 
-    step = S.make_batched_motor_steps(model, n_substeps=n_substeps, dt=DT,
-                                      ctrl_mode=ctrl_mode,
-                                      warm_start=warm_start)
+    step = step or S.make_batched_motor_steps(
+        model, n_substeps=n_substeps, dt=DT, ctrl_mode=ctrl_mode,
+        warm_start=warm_start)
     q, qd, tgt = motor_inputs(model, 1, ctrl_mode,
                               np.random.default_rng(SEED), "cpu")
     with Count():
@@ -294,10 +316,19 @@ def time_cuda(fn, reps, warmup=2, queued=False):
     return t0.elapsed_time(t1) / reps
 
 
-def k1_bound_ms(n_ops, B):
-    """Least time for K1 at batch B: the larger of its bytes (140 per env)
-    over the memory rate and its fp32 operations over the fp32 peak."""
-    return max(140.0 * B / PEAK_BYTES, float(n_ops) * B / PEAK_FP32_OPS) * 1e3
+# bytes per env of a K1 launch: q, qd, target read and q, qd written; and
+# of a one-substep launch of the contact step, which also reads tau_ext and
+# the carried set (sat as bytes, sign) and writes the set
+K1_BYTES = 140
+K1_SUBSTEP_BYTES = 4 * 7 * 4 + 7 + 28 + 2 * 7 * 4 + 7 + 28
+
+
+def k1_bound_ms(n_ops, B, bytes_per_env=K1_BYTES):
+    """Least time for K1 at batch B: the larger of its bytes (140 per env
+    unless given) over the memory rate and its fp32 operations over the
+    fp32 peak."""
+    return max(bytes_per_env * B / PEAK_BYTES,
+               float(n_ops) * B / PEAK_FP32_OPS) * 1e3
 
 
 def time_k1(fn, model, ctrl_mode, B, rng, device):
@@ -589,7 +620,7 @@ def classify_split(one, CD, states, b, dev):
     k_cur = p_cur = take(states, slice(b, b + 1))
     for k in range(N_SUBSTEPS):
         k_next = one(k_cur)
-        p_next = one(p_cur, one.plain_substep_step)
+        p_next = one(p_cur, plain=True)
         if not route_diff(k_next, p_next).any():
             k_cur, p_cur = k_next, p_next
             continue
@@ -617,7 +648,7 @@ def hold_routes(cmp, one, CD, s_in, label, dev, card):
     out_k = cmp(s_in)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_p = cmp(s_in, cmp.plain_substep_step)
+    out_p = cmp(s_in, plain=True)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     bad = route_diff(out_k, out_p).nonzero().flatten().tolist()
@@ -852,10 +883,11 @@ def train_config(max_timesteps=None):
         benchmark_eval_scenes=[])
 
 
-def run_trainer(cfg, dev, run_root, CD=None):
+def run_trainer(cfg, dev, run_root, CD=None, build=None, name="phase8"):
     """Trainer.learn() on the card, the envs built by make_reach_ao_core as
-    the CLI builds them; K1's counts are set to 0 as the env is made, just
-    before the run.  Returns (trainer, core, seconds)."""
+    the CLI builds them (or by ``build(stage)``); K1's counts are set to 0
+    as the env is made, just before the run.  Returns (trainer, core,
+    seconds)."""
     from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
     from panda_gym_tpu_torch.rl.logging_utils import RunLogger
     from panda_gym_tpu_torch.rl.train import Trainer
@@ -863,8 +895,9 @@ def run_trainer(cfg, dev, run_root, CD=None):
     cores = []
 
     def make_env(sc, thr, spd):
-        core = make_reach_ao_core(sc, config=cfg, ee_error_threshold=thr,
-                                  speed_threshold=spd, device=dev.type)
+        core = (build(sc) if build else
+                make_reach_ao_core(sc, config=cfg, ee_error_threshold=thr,
+                                   speed_threshold=spd, device=dev.type))
         motor = core.physics_step_batched.motor
         motor.launches = 0
         if CD is not None:
@@ -872,7 +905,7 @@ def run_trainer(cfg, dev, run_root, CD=None):
         cores.append(core)
         return core
 
-    logger = RunLogger(group="chip_smoke", name="phase8", config=cfg,
+    logger = RunLogger(group="chip_smoke", name=name, config=cfg,
                        root=run_root)
     trainer = Trainer(cfg, make_env, logger=logger)
     t0 = time.perf_counter()
@@ -945,7 +978,7 @@ def profile_once(fn, label, card):
     return n_launch, busy_us, wall_us
 
 
-def update_times(trainer, core, card):
+def update_times(trainer, core, card, tag="phase 8"):
     """ms per TQC update (CUDA events around each, the median of 50 after 5
     of warm-up), alone and with its HER sample; one profiled update and one
     profiled fused env step (the env step and its burst of 8 updates)."""
@@ -977,7 +1010,7 @@ def update_times(trainer, core, card):
 
     upd = timed(lambda: learner.update(ts, batch, noise))
     burst = timed(lambda: trainer.update_burst(ts, buf, gen, 1, bs, rf))
-    say(f"phase 8 TQC update (batch {bs}, net_arch "
+    say(f"{tag} TQC update (batch {bs}, net_arch "
         f"{list(learner.net_arch)}, {learner.N_QUANTILES} quantiles x "
         f"{learner.n_critics} critics): median {upd[0]:.3f} ms (min "
         f"{upd[1]:.3f}, max {upd[2]:.3f}) over {N_UPDATE_TIMED}; with its "
@@ -985,7 +1018,7 @@ def update_times(trainer, core, card):
         f"{burst[2]:.3f}) | {card}")
     n_upd, busy_upd, wall_upd = profile_once(
         lambda: learner.update(ts, batch, noise),
-        "phase 8 profile of one TQC update", card)
+        f"{tag} profile of one TQC update", card)
 
     venv = VectorEnv(core, N_ENVS, HORIZON)
     states, obs = venv.batch_reset(gen)
@@ -1000,7 +1033,7 @@ def update_times(trainer, core, card):
 
     fused_step()
     n_step, busy_step, wall_step = profile_once(
-        fused_step, f"phase 8 profile of one fused env step at B={N_ENVS} "
+        fused_step, f"{tag} profile of one fused env step at B={N_ENVS} "
                     f"({sched.n_upd_per_step} updates)", card)
     return dict(update_ms=upd[0], update_launches=n_upd,
                 update_busy=busy_upd / wall_upd, step_launches=n_step,
@@ -1802,6 +1835,357 @@ def drive_prior_eval(CD, trainer, dev, card):
                    card)
     return launches, err, out
 
+# ----------------------------------------------------------------- phase 11
+# the contact tasks: Push at bench.py's B = 16384 (bench.py:97-101, the
+# free-body row) and the trainer's n_envs, Slide (ee control) at the main
+# path's B, 5 steps each; the object of envs 0-7 put beside the end
+# effector first, its face 1 cm from the fingertip, so that the arm pushes
+# it.  K1 runs one seed launch and 20 warm one-substep launches with the
+# contact torque per step.
+CONTACT = (("push", 16384, 5), ("push", N_ENVS, 5), ("slide", B_MAIN, 5))
+K1_PER_CONTACT_STEP = N_SUBSTEPS + 1
+# tests/test_dynamics.py:240-245: observations and rewards of the batched
+# contact step against the per-env one
+ATOL_OBS, ATOL_REWARD = 2e-4, 1e-5
+# K1 timed per warm one-substep launch with tau_ext at these batches
+B_CONTACT_TIMED = (N_ENVS, B_MAIN, 16384)
+# Push training: the TQC preset at full width on n_envs 64, horizon 20,
+# cut to 2560 env steps (a collect rollout and its burst, then a fused one)
+PUSH_TRAIN_STEPS = 2560
+
+
+def rest_height(scene):
+    """The height of a body's centre resting on the table: the depth of its
+    lowest contact sample."""
+    smp, mask = scene.body_samples[0], scene.body_sample_mask[0] > 0
+    return float(-(smp[mask, 2] - smp[mask, 3]).min())
+
+
+def contact_diff(env, a, b):
+    """Per env, whether two contact-step results part beyond the
+    tolerances: q, qd, the observation and the reward after the step."""
+    sa, oa, ra, *_ = env._step_post(a)
+    sb, ob, rb, *_ = env._step_post(b)
+    return (((a.q - b.q).abs() > ATOL_Q).any(1)
+            | ((a.qd - b.qd).abs() > ATOL_QD).any(1)
+            | ((oa["observation"] - ob["observation"]).abs()
+               > ATOL_OBS).any(1)
+            | ((ra - rb).abs() > ATOL_REWARD))
+
+
+def route_tie(phys, states, b, diff, dev):
+    """Whether env b of a step that parts between the K1 route and the plain
+    route sits at a tie of the reference: its state copied 16 times, q of
+    copies 1-15 scaled by 1 + 1e-6 N(0, 1), through both routes; a tie if
+    the plain results of the copies spread beyond the tolerance and the two
+    routes agree on at least one copy.  Returns (tie, copies agreeing)."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    noise = 1e-6 * torch.randn(16, 7, generator=g, device=dev)
+    noise[0] = 0.0
+    s16 = take(states, [b] * 16)
+    s16 = s16.replace(q=(s16.q * (1.0 + noise)).contiguous())
+    k, p = phys(s16), phys(s16, plain=True)
+    spread = bool(diff(p, take(p, [0] * 16)).any())
+    agree = ~diff(k, p)
+    return spread and bool(agree.any()), int(agree.sum())
+
+
+def hold_step_routes(phys, s_in, diff, label, dev, card):
+    """One policy step of ``phys`` on its K1 route and its plain route from
+    the same states: every env within the tolerances (``diff``), or at most
+    MAX_TIES of them ties (route_tie).  Returns (the K1 route's output, the
+    largest q/qd error over the agreeing envs, the plain route's ms)."""
+    out_k = phys(s_in)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = phys(s_in, plain=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bad = diff(out_k, out_p).nonzero().flatten().tolist()
+    good = torch.ones(s_in.q.shape[0], dtype=torch.bool, device=dev)
+    good[bad] = False
+    err = max((out_k.q - out_p.q)[good].abs().max().item(),
+              (out_k.qd - out_p.qd)[good].abs().max().item())
+    say(f"{label}: K1 route vs plain route, max|dq|, max|dqd| "
+        f"{err:.3e} over {int(good.sum())} envs within the tolerances (q "
+        f"{ATOL_Q}, qd {ATOL_QD}, observation {ATOL_OBS}, reward "
+        f"{ATOL_REWARD} / link distances {ATOL_LINK} and the flags); "
+        f"{len(bad)} outside; plain route {plain_ms:.1f} ms | {card}")
+    if len(bad) > MAX_TIES:
+        fail(f"{label}: the K1 route disagrees with the plain route on "
+             f"{len(bad)} envs")
+    for b in bad:
+        tie, n_agree = route_tie(phys, s_in, b, diff, dev)
+        say(f"  env {b}: 16 copies perturbed by 1e-6: the routes agree on "
+            f"{n_agree}: {'tie' if tie else 'FAIL'}")
+        if not tie:
+            fail(f"{label}: the K1 route disagrees with the plain route on "
+                 f"env {b}")
+    return out_k, err, plain_ms
+
+
+def push_objects(env, states, dev):
+    """Put the object of envs 0-7 beside the end effector, alternately on
+    either side along x, its face 1 cm from the fingertip."""
+    from panda_gym_tpu_torch.ops import kinematics as K
+
+    ee = env.robot.ee_position(K.fk_world(env.model, states.q))
+    half = float(env.task.scene.body_size[0][0])
+    side = torch.tensor([[(-1.0) ** b * (half + 0.01), 0.0, 0.0]
+                         for b in range(N_FORCED)], device=dev)
+    pos = states.body_pos.clone()
+    pos[:N_FORCED, 0] = ee[:N_FORCED] + side
+    return states.replace(body_pos=pos)
+
+
+def drive_contact(make_core, _hi_prec, CD, task, B, n_steps, dev, card):
+    """Phase 11 for one task at batch B: the main path (batched_reset, the
+    objects of envs 0-7 pushed, n_steps batched_step calls), K1's counts
+    set to 0 just before and read just after; the checks; the two motor
+    routes held against each other on the first step's states; the step's
+    time and a profile.  Returns (counts, largest K1 error, step ms)."""
+    env = make_core(task)
+    phys = env.physics_step_batched
+    motor = phys.motor
+    picked = CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+    twin = CD.make_cuda_motor_steps(env.model, n_substeps=1, dt=DT,
+                                    ctrl_mode=motor.ctrl_mode,
+                                    warm_start=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, _ = env.batched_reset(B, gen)
+    states = push_objects(env, states, dev)
+    start = states.body_pos[:, 0].clone()
+    acts = [torch.rand(B, env.robot.action_dim, generator=gen, device=dev)
+            * 2.0 - 1.0 for _ in range(n_steps + 1 + N_TIMED)]
+    s_in = _hi_prec(env.robot.set_action)(states, acts[0])
+    *_, tau0, _ = _hi_prec(phys.forces)(s_in.q, s_in.qd, s_in.body_pos,
+                                        s_in.body_quat, s_in.body_vel,
+                                        s_in.body_ang)
+
+    motor.launches = 0
+    motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+    s = states
+    for i in range(n_steps):
+        s, obs, reward, terminated, truncated, info = env.batched_step(
+            s, acts[i])
+    torch.cuda.synchronize()
+    counts = dict(motor.kernel_launches)
+    want = {CD.LANES: 0, CD.THREAD: 0}
+    want[picked] = K1_PER_CONTACT_STEP * n_steps
+
+    moved = (s.body_pos[:, 0] - start).abs().amax(1)
+    # untouched: the arm never reached the object (it did not move on the
+    # table); it must rest on the table
+    untouched = (s.body_pos[:, 0, :2] - start[:, :2]).abs().amax(1) < 1e-4
+    untouched[:N_FORCED] = False
+    rest = rest_height(env.task.scene)
+    q_lo = torch.as_tensor(env.model.q_lo, device=dev)
+    q_hi = torch.as_tensor(env.model.q_hi, device=dev)
+    body = torch.cat([s.body_pos, s.body_quat, s.body_vel, s.body_ang], -1)
+    checks = {
+        f"K1: {K1_PER_CONTACT_STEP} launches per step (a seed and "
+        f"{N_SUBSTEPS} substeps), all on the {KERNEL_NAMES[picked]} kernel":
+            counts == want and motor.launches == sum(want.values()),
+        "pushed envs: non-zero tau_ext": bool(
+            (tau0[:N_FORCED].abs().amax(1) > 1e-3).all()),
+        "pushed envs: the object moved": bool((moved[:N_FORCED] > 1e-3).all()),
+        "untouched objects rest on the table (z within 1e-3)": bool(
+            ((s.body_pos[untouched, 0, 2] - rest).abs() < 1e-3).all()),
+        "obs, reward, state finite": bool(
+            torch.isfinite(obs["observation"]).all()
+            and torch.isfinite(reward).all() and torch.isfinite(body).all()
+            and torch.isfinite(s.q).all() and torch.isfinite(s.qd).all()),
+        "obs shape": tuple(obs["observation"].shape) == (B, 18),
+        "reward in {-1, 0}": bool(((reward == 0) | (reward == -1)).all()),
+        "q in limits": bool(((s.q >= q_lo) & (s.q <= q_hi)).all()),
+        "steps": bool((s.steps == n_steps).all()),
+    }
+    say(f"phase 11 main path: {task}, {n_steps} batched_step at B={B}, K1 "
+        f"launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+        f"tau_ext of the pushed envs at the first substep max "
+        f"{tau0[:N_FORCED].abs().amax().item():.3f} N m, objects moved by "
+        f"{moved[:N_FORCED].min().item():.4f}-"
+        f"{moved[:N_FORCED].max().item():.4f} m, {int(untouched.sum())} "
+        f"untouched at z {s.body_pos[untouched, 0, 2].min().item():.5f}-"
+        f"{s.body_pos[untouched, 0, 2].max().item():.5f} (rest {rest}), "
+        f"success rate {info['is_success'].float().mean().item():.4f}, "
+        f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 11 checks of {task} at B={B} failed: {checks}")
+
+    cmp = copy.copy(phys)
+    cmp.motor = twin
+    _, err, plain_ms = hold_step_routes(
+        cmp, s_in, lambda a, b: contact_diff(env, a, b),
+        f"phase 11 {task} B={B}", dev, card)
+    step_ms = time_contact(env, s, acts[n_steps:], task, card,
+                           f", the plain route {plain_ms:.1f} ms for the "
+                           f"physics of one step")
+    return counts, err, step_ms
+
+
+def time_contact(env, s, acts, task, card, note=""):
+    """The contact step's time: one step to warm up, then each of the
+    remaining steps timed alone between two synchronizes (median, min and
+    max); then one profiled step, its launches and the card's busy
+    share."""
+    B = s.q.shape[0]
+    s, *_ = env.batched_step(s, acts[0])
+    ms = []
+    for a in acts[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, *_ = env.batched_step(s, a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(ms))
+    say(f"phase 11 {task} batched_step B={B}: median {step_ms:.1f} ms/step "
+        f"over {len(ms)} steps (min {min(ms):.1f}, max {max(ms):.1f}; "
+        f"{B / step_ms * 1e3:.0f} env-steps/s at the median) on the K1 "
+        f"route{note} | {card}")
+    profile_step(env, s, acts[:1], card, n=1, tag=f"phase 11 {task}")
+    return step_ms
+
+
+def k1_substep_times(CD, model, rng, dev, card):
+    """K1 per warm one-substep launch with tau_ext, as the contact step
+    launches it, at B_CONTACT_TIMED: time per launch beside the bound
+    (operations counted on the plain substep's trace, bytes with tau_ext
+    and the set), and the plain version's time for one call.  Returns
+    ({B: (ms, plain_ms, bound_ms)}, ops)."""
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=False)
+
+    # the substep alone, from a given set (the seed is a launch of its own)
+    tau1 = torch.full((1, 7), 10.0)
+    warm1 = (torch.zeros(1, 7, dtype=torch.bool), torch.ones(1, 7))
+    n_ops = count_plain_ops(
+        model, 0, step=lambda q, qd, tgt: k1.plain_substep(q, qd, tgt, tau1,
+                                                           warm1))
+    out = {}
+    for B in B_CONTACT_TIMED:
+        q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
+        tau = 10.0 * torch.randn(B, 7, device=dev)
+        warm = k1.seed(q, qd, tgt)
+        ms = time_cuda(lambda: k1.substep(q, qd, tgt, tau, warm), 20,
+                       queued=True)
+        plain_ms = time_cuda(lambda: k1.plain_substep(q, qd, tgt, tau, warm),
+                             1, warmup=1)
+        bound = k1_bound_ms(n_ops, B, K1_SUBSTEP_BYTES)
+        out[B] = (ms, plain_ms, bound)
+        say(f"phase 11 K1 one warm substep with tau_ext B={B}: {ms:.4f} "
+            f"ms/launch, bound {bound:.6f} ms ({n_ops} fp32 ops/env counted "
+            f"from the plain substep, {K1_SUBSTEP_BYTES} bytes/env), "
+            f"{ms / bound:.1f}x the bound; plain version {plain_ms:.1f} ms "
+            f"for one call | {card}")
+    return out, n_ops
+
+
+def drive_reach_ao_warm(CD, _hi_prec, dev, card):
+    """Phase 11, ReachAO under PANDA_LCP_WARM=1: one reachao1 step at the
+    main path's B, K1 one seed and 20 warm one-substep launches (counts set
+    to 0 just before the step and read just after), the K1 route held
+    against the plain warm route.  Returns (launches, largest error)."""
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+    from panda_gym_tpu_torch.ops import dynamics as D
+
+    saved = os.environ.get("PANDA_LCP_WARM"), D.LCP_WARM_START
+    os.environ["PANDA_LCP_WARM"], D.LCP_WARM_START = "1", True
+    try:
+        env = make_reach_ao_core("reachao1", device="cuda")
+    finally:
+        if saved[0] is None:
+            del os.environ["PANDA_LCP_WARM"]
+        else:
+            os.environ["PANDA_LCP_WARM"] = saved[0]
+        D.LCP_WARM_START = saved[1]
+    phys = env.physics_step_batched
+    motor = phys.motor
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, _ = env.batched_reset(B_MAIN, gen)
+    a = torch.rand(B_MAIN, 7, generator=gen, device=dev) * 2.0 - 1.0
+    s_in = _hi_prec(env.robot.set_action)(states, a)
+    motor.launches = 0
+    motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+    s, obs, *_ = env.batched_step(states, a)
+    torch.cuda.synchronize()
+    counts = dict(motor.kernel_launches)
+    checks = {
+        "warm": phys.warm_start,
+        f"K1: {K1_PER_CONTACT_STEP} launches, all on the lane-group kernel":
+            counts == {CD.LANES: K1_PER_CONTACT_STEP, CD.THREAD: 0},
+        "obs finite": bool(torch.isfinite(obs["observation"]).all()),
+    }
+    say(f"phase 11 main path: reachao1 under PANDA_LCP_WARM=1, one "
+        f"batched_step at B={B_MAIN}, K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, checks "
+        f"{checks}")
+    if not all(checks.values()):
+        fail(f"phase 11 ReachAO warm checks failed: {checks}")
+    cmp = copy.copy(phys)
+    cmp.motor = CD.make_cuda_motor_steps(env.model, n_substeps=1, dt=DT,
+                                         ctrl_mode=motor.ctrl_mode,
+                                         warm_start=False)
+    _, err, _ = hold_step_routes(cmp, s_in, route_diff,
+                                 f"phase 11 reachao1 warm B={B_MAIN}", dev,
+                                 card)
+    return motor.launches, err
+
+
+def drive_push_training(CD, dev, card, run_root):
+    """Phase 11, Push training: Trainer.learn at n_envs 64 with the TQC
+    preset at full width, cut to PUSH_TRAIN_STEPS env steps of horizon 20,
+    K1's counts set to 0 as the env is made.  Checks: 21 K1 launches per
+    env step, losses finite, the buffer on the card.  Times: ms per collect
+    env step and per TQC update.  Returns the K1 launches of the run."""
+    from panda_gym_tpu_torch.envs.panda_tasks import make_core
+    from panda_gym_tpu_torch.rl.config import TrainConfig
+
+    cfg = TrainConfig(
+        n_envs=N_ENVS, stages=["push"], max_ep_steps=[HORIZON],
+        max_timesteps=PUSH_TRAIN_STEPS,
+        learning_starts=PUSH_TRAIN_STEPS // 2,
+        interleave_min_buffer=PUSH_TRAIN_STEPS // 4,
+        eval_freq=10 * PUSH_TRAIN_STEPS, ee_error_thresholds=[0.05],
+        success_thresholds=[2.0], benchmark_eval_scenes=[])
+    trainer, core, seconds = run_trainer(
+        cfg, dev, run_root, CD, build=lambda sc: make_core(sc),
+        name="phase11")
+    motor = core.physics_step_batched.motor
+    counts = dict(motor.kernel_launches)
+    rows, burst, fused = rollout_rows(trainer)
+    env_steps = HORIZON * len(rows)
+    buf = trainer.buffer
+    metrics = [v for r in rows for k, v in r.items()
+               if k in ("critic_loss", "actor_loss", "alpha")]
+    checks = {
+        f"K1: {K1_PER_CONTACT_STEP} launches per env step, all on the "
+        f"lane-group kernel":
+            counts == {CD.LANES: K1_PER_CONTACT_STEP * env_steps,
+                       CD.THREAD: 0},
+        "a burst and a fused rollout": len(burst) > 0 and len(fused) > 0,
+        "losses and alpha finite": bool(metrics) and all(
+            np.isfinite(v) for v in metrics),
+        "buffer on cuda": all(getattr(buf, k).device.type == "cuda"
+                              for k in ("obs", "achieved", "desired",
+                                        "action", "aux")),
+        "obs of the contact task": buf.obs.shape[-1] == 18,
+    }
+    say(f"phase 11 main path: Trainer.learn on push at n_envs={N_ENVS}, "
+        f"{len(rows)} rollouts ({len(fused)} fused), {env_steps} env steps, "
+        f"K1 launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+        f"{trainer.ts.step} updates, checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 11 Push training checks failed: {checks}")
+    coll = [r for r in rows if r not in fused]
+    ms = [r["t_collect"] * 1e3 / HORIZON for r in coll]
+    say(f"phase 11 Push collect env step at B={N_ENVS}: "
+        f"{', '.join(f'{m:.1f}' for m in ms)} ms per env step over "
+        f"{len(ms)} rollouts of {HORIZON}; training {trainer.timesteps} env "
+        f"steps in {seconds:.2f} s | {card}")
+    update_times(trainer, core, card, "phase 11 Push")
+    return counts[CD.LANES]
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1977,17 +2361,31 @@ def main():
                                                               run_root)
         pe_launches, pe_err, _ = drive_prior_eval(CD, trainer, dev, card)
 
-    def bound_by(ops):
-        return ("operations" if float(ops) / PEAK_FP32_OPS > 140.0 / PEAK_BYTES
-                else "bytes")
+    # --------------------------------------------------------------- 11
+    ct_counts, ct_err = {}, {}
+    for task, B, n_steps in CONTACT:
+        ct_counts[task, B], ct_err[task, B], _ = drive_contact(
+            make_core, _hi_prec, CD, task, B, n_steps, dev, card)
+    if {CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+            for _, B, _ in CONTACT} != {CD.LANES, CD.THREAD}:
+        fail("phase 11: the contact batches did not run both K1 kernels")
+    warm_launches, warm_err = drive_reach_ao_warm(CD, _hi_prec, dev, card)
+    with tempfile.TemporaryDirectory() as run_root:
+        push_train_launches = drive_push_training(CD, dev, card, run_root)
+    sub_times, sub_ops = k1_substep_times(CD, model, rng, dev, card)
 
-    def k1_row(name, launches, err, ms, p_ms, bound, ops):
+    def bound_by(ops, bytes_per_env=K1_BYTES):
+        return ("operations" if float(ops) / PEAK_FP32_OPS
+                > bytes_per_env / PEAK_BYTES else "bytes")
+
+    def k1_row(name, launches, err, ms, p_ms, bound, ops,
+               bytes_per_env=K1_BYTES):
         return {"name": name, "route": "cuda",
                 "source": "panda_gym_tpu_torch/ops/csrc/motor_steps.cu",
                 "replaces": "panda_gym_tpu/ops/pallas_dynamics.py:96",
                 "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": bound_by(ops), "library_ms": None}
+                "bound_by": bound_by(ops, bytes_per_env), "library_ms": None}
 
     rows = []
     for lanes, tag in ((CD.LANES, "lanes"), (CD.THREAD, "thread")):
@@ -2029,6 +2427,23 @@ def main():
         f"({PRIOR_EVAL_SCENE}), {KERNEL_NAMES[CD.LANES]} "
         f"(B={EVAL_EPISODES})", pe_launches, pe_err,
         *tr_times[EVAL_EPISODES], ao_ops))
+    for (task, B), counts in ct_counts.items():
+        lanes = CD.LANES if counts[CD.LANES] else CD.THREAD
+        rows.append(k1_row(
+            f"K1 one warm substep with tau_ext on the {task} contact step "
+            f"(a seed and 20 substeps per step), {KERNEL_NAMES[lanes]} "
+            f"(B={B})", counts[lanes], ct_err[task, B], *sub_times[B],
+            sub_ops, K1_SUBSTEP_BYTES))
+    rows.append(k1_row(
+        f"K1 one warm substep with tau_ext on the Push training path "
+        f"(Trainer at n_envs {N_ENVS}), {KERNEL_NAMES[CD.LANES]} "
+        f"(B={N_ENVS})", push_train_launches, ct_err["push", N_ENVS],
+        *sub_times[N_ENVS], sub_ops, K1_SUBSTEP_BYTES))
+    rows.append(k1_row(
+        f"K1 one warm substep on ReachAO under PANDA_LCP_WARM=1 (reachao1; "
+        f"timed with tau_ext), {KERNEL_NAMES[CD.LANES]} (B={B_MAIN})",
+        warm_launches, warm_err,
+        *sub_times[B_MAIN], sub_ops, K1_SUBSTEP_BYTES))
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

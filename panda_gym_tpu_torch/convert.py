@@ -52,9 +52,9 @@ def chain_model(fields: Mapping[str, Any]) -> ChainModel:
 
 
 def env_state(arrays: Mapping[str, np.ndarray], device="cuda") -> EnvState:
-    """A batched EnvState from numpy arrays with the batch leading.  Keys the
-    port does not hold (the JAX PRNG ``key``, the free-body fields) are
-    ignored; every field of the port's EnvState must be present."""
+    """A batched EnvState from numpy arrays with the batch leading.  The key
+    the port does not hold (the JAX PRNG ``key``) is ignored; every field of
+    the port's EnvState must be present."""
     kw: Dict[str, torch.Tensor] = {}
     for k in FIELDS:
         a = np.asarray(arrays[k])

@@ -114,6 +114,7 @@ class RobotTaskEnv:
     # ------------------------------------------------------------------
     def init_state(self, batch: int) -> EnvState:
         m = self.model
+        nb = self.task.scene.nb
         no = self.task.n_obstacles
         na = self.robot.action_dim
         dev = self.device
@@ -122,6 +123,10 @@ class RobotTaskEnv:
             batch, m.ndof).clone()
         return EnvState(
             q=q, qd=f(batch, m.ndof), ctrl_target=q.clone(),
+            body_pos=f(batch, nb, 3),
+            body_quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).repeat(
+                batch, nb, 1),
+            body_vel=f(batch, nb, 3), body_ang=f(batch, nb, 3),
             obstacle_pos=torch.full((batch, no, 3), 99.9, device=dev),
             obstacle_vel=f(batch, no, 3),
             obstacle_size=torch.full((batch, no, 3), 1e-3, device=dev),

@@ -7,14 +7,16 @@ broadcast, as in the JAX module:
   sphere   = (c, r)           degenerate capsule
   box      = (center, R, half) oriented box
 Rotations are applied as sums of products, never as matrix products, so
-TF32 cannot reach them.  ``penalty_force`` waits for the contact tasks
-(ROADMAP item 13).
+TF32 cannot reach them.  ``penalty_force`` (:148) is the contact law of the
+free-body step.
 """
 from __future__ import annotations
 
 import torch
 
 EPS = 1e-9
+# the penalty contact law's stiffness, damping and friction slip scale
+KN, DN, V_EPS = 8000.0, 120.0, 2e-3
 
 
 def _t(x, like):
@@ -156,3 +158,38 @@ def sphere_box_distance(center_s, rs, center_b, Rb, half):
     p_on_box = _rot(Rb, cb) + center_b
     p_on_sphere = center_s - n_world * rs[..., None]
     return sd - rs, p_on_sphere, p_on_box, n_world
+
+
+# ---------------------------------------------------------------------------
+# penalty contact force
+# ---------------------------------------------------------------------------
+
+def dot3(a, b):
+    """a . b over the last axis, added as (x + y) + z."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+def cross3(a, b):
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], -1)
+
+
+def penalty_force(depth, normal, v_rel, mu):
+    """Spring-damper normal force and regularised Coulomb friction.
+
+    depth > 0 is penetration; ``normal`` points from surface A into B (the
+    force acts on B); ``v_rel`` is B's velocity relative to A at the contact
+    point.  Returns the force on B (..., 3).  The order of operations is
+    the JAX package's batched form (scalarized_contact.py:90-100), which
+    its free-body step runs."""
+    pen = torch.clamp_min(depth, 0.0)
+    v_n = dot3(v_rel, normal)
+    fn = torch.clamp_min(KN * pen - DN * v_n * (pen > 0), 0.0)
+    v_t = v_rel - v_n[..., None] * normal
+    vt_norm = torch.sqrt(torch.clamp_min(dot3(v_t, v_t), 0.0))
+    # saturated viscous friction: |ft| <= mu fn, linear for small slip
+    ft_mag = mu * fn * torch.clamp_max(vt_norm / V_EPS, 1.0)
+    inv = 1.0 / torch.clamp_min(vt_norm, EPS)
+    return fn[..., None] * normal + (-ft_mag[..., None] * v_t) * inv[..., None]

@@ -14,6 +14,16 @@
 // Cold (the reference's ReachAO collision step, which launches one substep
 // at a time): every substep solves from its own unconstrained pass.
 //
+// One warm substep at a time (the contact step, and the ReachAO step under
+// PANDA_LCP_WARM=1, which launch once per substep): a seed launch runs only
+// the cold pre-solve and writes the active set; each substep launch then
+// reads the set carried from the launch before, refines it warm and writes
+// it back.  A contact torque tau_ext (B, 7) is added to the right-hand side
+// of the free-velocity solve, tau_ext - bias, as scalarized.py adds it; the
+// seed ignores it, as the reference's seed does.  With null pointers for
+// these (the Reach step, and the cold collision step) every output is what
+// it was without them, bit for bit.
+//
 // What bounds it: per env it reads 3x7 and writes 2x7 floats (140 B) and
 // does ~82k fp32 operations per policy step, so it is bound by operations,
 // not bytes.  Those operations are one long chain per env.  Two kernels
@@ -131,6 +141,17 @@ struct Args {
   int cold_iters;
   int warm_iters;
   int warm;            // 1: seed once, refine warm; 0: every substep cold
+  int seed;            // 1: only the cold pre-solve, which writes the set
+};
+
+// The optional per-env inputs and outputs of one-substep launches, (B, 7)
+// each; null where not given.
+struct Carry {
+  const float* tau;            // contact torque, added to -bias
+  const unsigned char* sat_in; // carried active set (0/1) and its signs
+  const float* sign_in;
+  unsigned char* sat_out;      // the active set after the launch
+  float* sign_out;
 };
 
 // One group's scratch in shared memory.  Slots are indexed by lane (lane 7
@@ -228,6 +249,29 @@ __device__ __forceinline__ M3 pick_m3(int i, const float (&a)[N][9]) {
   return r;
 }
 __device__ __forceinline__ V3 pick3(int i, V3 a, V3 b, V3 c) { return i == 0 ? a : (i == 1 ? b : c); }
+__device__ __forceinline__ unsigned char pick_sat(int i, const bool (&a)[N]) {
+  bool r = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = i == k ? a[k] : r;
+  return r ? 1 : 0;
+}
+
+// Every lane (or the env's one thread) reads the env's whole contact torque
+// and carried active set, where given.
+__device__ __forceinline__ void load_carry(const Carry& c, long long off, float (&tau)[N],
+                                           bool (&sat)[N], float (&sign)[N]) {
+  if (c.tau != nullptr) {
+#pragma unroll
+    for (int d = 0; d < N; ++d) tau[d] = c.tau[off + d];
+  }
+  if (c.sat_in != nullptr) {
+#pragma unroll
+    for (int d = 0; d < N; ++d) {
+      sat[d] = c.sat_in[off + d] != 0;
+      sign[d] = c.sign_in[off + d];
+    }
+  }
+}
 
 __device__ __forceinline__ void force_to_parent(const M3& R, V3 p, V3& n, V3& f) {
   const V3 f_p = mv(R, f);
@@ -473,7 +517,8 @@ __device__ __forceinline__ void store7(float* p, const float (&v)[N]) {
 // leaves with the same values; all 8 lanes must call it together.
 __device__ __forceinline__ void motor_substep(const Args& a, const Lane& me, Scratch& s,
                                               float (&q)[N], float (&qd)[N],
-                                              const float (&tgt)[N], bool cold, bool seed_only,
+                                              const float (&tgt)[N], const float (&tau)[N],
+                                              bool has_tau, bool cold, bool seed_only,
                                               bool (&sat)[N], float (&sign)[N]) {
   const Model& m = a.m;
   float v_des[N];
@@ -518,7 +563,7 @@ __device__ __forceinline__ void motor_substep(const Args& a, const Lane& me, Scr
   }
   float rhs[N], fv[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) rhs[i] = -bias[i];
+  for (int i = 0; i < N; ++i) rhs[i] = has_tau ? tau[i] - bias[i] : -bias[i];
   cholesky_subst(L, inv, rhs, fv);
   if (me.l == 0) store7(s.G[4], fv);
   __syncwarp();
@@ -602,7 +647,7 @@ __device__ __forceinline__ void motor_substep(const Args& a, const Lane& me, Scr
 __global__ void __launch_bounds__(THREADS)
 motor_steps_lanes_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                    const float* __restrict__ tgt_in, float* __restrict__ q_out,
-                   float* __restrict__ qd_out, int B, const Args a) {
+                   float* __restrict__ qd_out, int B, const Args a, const Carry c) {
   __shared__ Scratch scratch[GROUPS];
   const Model& m = a.m;
   Lane me;
@@ -643,17 +688,31 @@ motor_steps_lanes_kernel(const float* __restrict__ q_in, const float* __restrict
   }
   // (made visible by the first __syncwarp() of the substep)
 
+  float tau[N] = {};
   bool sat[N] = {};
   float sign[N] = {};
-  // warm: a cold pre-solve on the initial system keeps only the active set
-  if (a.warm)
-    motor_substep(a, me, s, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
+  load_carry(c, off, tau, sat, sign);
+  // warm: a cold pre-solve on the initial system keeps only the active set,
+  // unless the set is carried in; it ignores tau_ext
+  if (a.seed || (a.warm && c.sat_in == nullptr))
+    motor_substep(a, me, s, q, qd, tgt, tau, false, /*cold=*/true, /*seed_only=*/true, sat,
+                  sign);
+  if (!a.seed) {
 #pragma unroll 1
-  for (int k = 0; k < a.n_substeps; ++k)
-    motor_substep(a, me, s, q, qd, tgt, /*cold=*/!a.warm, /*seed_only=*/false, sat, sign);
+    for (int k = 0; k < a.n_substeps; ++k)
+      motor_substep(a, me, s, q, qd, tgt, tau, c.tau != nullptr, /*cold=*/!a.warm,
+                    /*seed_only=*/false, sat, sign);
+  }
+  // lane d stores element d of each output
   if (b < B && me.l < N) {
-    q_out[off + me.l] = pick(me.l, q);
-    qd_out[off + me.l] = pick(me.l, qd);
+    if (!a.seed) {
+      q_out[off + me.l] = pick(me.l, q);
+      qd_out[off + me.l] = pick(me.l, qd);
+    }
+    if (c.sat_out != nullptr) {
+      c.sat_out[off + me.l] = pick_sat(me.l, sat);
+      c.sign_out[off + me.l] = pick(me.l, sign);
+    }
   }
 }
 
@@ -766,7 +825,8 @@ __device__ __forceinline__ void matvec(const float (&M)[N][N], const float (&v)[
 // One substep of one env on one thread (scalarized.py:motor_substep); the
 // same steps as motor_substep above, every one on this thread.
 __device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], float (&qd)[N],
-                                               const float (&tgt)[N], bool cold, bool seed_only,
+                                               const float (&tgt)[N], const float (&tau)[N],
+                                               bool has_tau, bool cold, bool seed_only,
                                                bool (&sat)[N], float (&sign)[N]) {
   const Model& m = a.m;
   float v_des[N];
@@ -786,7 +846,7 @@ __device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], flo
   float L[N][N], inv[N], rhs[N], fv[N];
   cholesky_factor(M, L, inv);
 #pragma unroll
-  for (int i = 0; i < N; ++i) rhs[i] = -bias[i];
+  for (int i = 0; i < N; ++i) rhs[i] = has_tau ? tau[i] - bias[i] : -bias[i];
   cholesky_subst(L, inv, rhs, fv);
   float qd_free[N], Mqf[N];
 #pragma unroll
@@ -849,7 +909,7 @@ __device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], flo
 __global__ void __launch_bounds__(THREADS)
 motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                           const float* __restrict__ tgt_in, float* __restrict__ q_out,
-                          float* __restrict__ qd_out, int B, const Args a) {
+                          float* __restrict__ qd_out, int B, const Args a, const Carry c) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const long long off = static_cast<long long>(b) * N;
@@ -860,17 +920,29 @@ motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restric
     qd[d] = qd_in[off + d];
     tgt[d] = tgt_in[off + d];
   }
-  bool sat[N];
-  float sign[N];
-  if (a.warm)
-    thread_substep(a, q, qd, tgt, /*cold=*/true, /*seed_only=*/true, sat, sign);
+  float tau[N] = {};
+  bool sat[N] = {};
+  float sign[N] = {};
+  load_carry(c, off, tau, sat, sign);
+  if (a.seed || (a.warm && c.sat_in == nullptr))
+    thread_substep(a, q, qd, tgt, tau, false, /*cold=*/true, /*seed_only=*/true, sat, sign);
+  if (!a.seed) {
 #pragma unroll 1
-  for (int k = 0; k < a.n_substeps; ++k)
-    thread_substep(a, q, qd, tgt, /*cold=*/!a.warm, /*seed_only=*/false, sat, sign);
+    for (int k = 0; k < a.n_substeps; ++k)
+      thread_substep(a, q, qd, tgt, tau, c.tau != nullptr, /*cold=*/!a.warm,
+                     /*seed_only=*/false, sat, sign);
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    q_out[off + d] = q[d];
-    qd_out[off + d] = qd[d];
+    for (int d = 0; d < N; ++d) {
+      q_out[off + d] = q[d];
+      qd_out[off + d] = qd[d];
+    }
+  }
+  if (c.sat_out != nullptr) {
+#pragma unroll
+    for (int d = 0; d < N; ++d) {
+      c.sat_out[off + d] = sat[d] ? 1 : 0;
+      c.sign_out[off + d] = sign[d];
+    }
   }
 }
 
@@ -880,12 +952,22 @@ motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restric
 // lane-group kernel (lanes_per_env 8) or the one-env-per-thread kernel
 // (lanes_per_env 1), warm-started (warm 1) or cold (warm 0), on the caller's
 // stream on card `device` and returns cudaGetLastError() (0 on success).
+// Optional, (B, 7) each, null where not given: tau (the contact torque),
+// sat_in/sign_in (a carried active set, read in place of the seed when
+// warm), sat_out/sign_out (the set after the launch).  seed 1 runs only the
+// cold pre-solve and writes the set to sat_out/sign_out, and nothing else.
 extern "C" int motor_steps_launch(const float* q, const float* qd, const float* tgt,
                                   float* q_out, float* qd_out, int B, const float* model,
                                   int n_substeps, double dt, int ctrl_mode,
                                   double position_gain, int cold_iters, int warm_iters,
-                                  int device, void* stream, int lanes_per_env, int warm) {
+                                  int device, void* stream, int lanes_per_env, int warm,
+                                  const float* tau, const unsigned char* sat_in,
+                                  const float* sign_in, unsigned char* sat_out,
+                                  float* sign_out, int seed) {
   if (lanes_per_env != LANES && lanes_per_env != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((sat_in == nullptr) != (sign_in == nullptr) ||
+      (sat_out == nullptr) != (sign_out == nullptr) || (seed && sat_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -907,14 +989,16 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
   a.cold_iters = cold_iters;
   a.warm_iters = warm_iters;
   a.warm = warm;
+  a.seed = seed;
+  const Carry c = {tau, sat_in, sign_in, sat_out, sign_out};
   if (B > 0 && lanes_per_env == LANES) {
     const int blocks = (B + GROUPS - 1) / GROUPS;
     motor_steps_lanes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        q, qd, tgt, q_out, qd_out, B, a);
+        q, qd, tgt, q_out, qd_out, B, a, c);
   } else if (B > 0) {
     const int blocks = (B + THREADS - 1) / THREADS;
     motor_steps_thread_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        q, qd, tgt, q_out, qd_out, B, a);
+        q, qd, tgt, q_out, qd_out, B, a, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,15 @@ one cold solve and refines it warm in every substep; cold solves every
 substep from scratch, as the reference's ReachAO collision step does (it
 launches K1 once per substep).  A CUDA tensor launches the kernel or
 raises; a CPU tensor takes the plain version.
+
+The steps that launch K1 once per substep carry the warm active set from
+one launch to the next: ``seed`` runs the cold pre-solve alone and returns
+the set, ``substep`` runs one substep, warm from a given set (which it
+returns updated) or cold, with an optional contact torque ``tau_ext``
+added to the free-velocity solve (the contact step's J^T f).  A set is
+``(sat, sign)``, (B, ndof) bool and float32; its plain twins
+(``plain_seed``, ``plain_substep``) run ``scalarized.motor_substep`` on
+any device.
 """
 from __future__ import annotations
 
@@ -78,7 +87,8 @@ def _bind(lib: ctypes.CDLL):
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                  + [ctypes.c_void_p] * 5 + [ctypes.c_int])
     fn.restype = ctypes.c_int
     lib.motor_steps_model_floats.restype = ctypes.c_int
     lib.motor_steps_occupancy.argtypes = ([ctypes.c_int] * 2
@@ -139,31 +149,105 @@ class CudaMotorSteps:
         self.plain = S.make_batched_motor_steps(
             model, n_substeps=n_substeps, dt=dt, ctrl_mode=ctrl_mode,
             warm_start=self.warm_start)
+        self.mc = S.consts_from_model(model)
         self._table = pack_model(model)
         self._fn = None
         self.launches = 0
         self.kernel_launches = {LANES: 0, THREAD: 0}
 
-    def __call__(self, q, qd, target):
+    def pick(self, q) -> int:
+        """The kernel the wrapper runs at q's batch: ``LANES`` up to one
+        wave of the lane-group kernel, ``THREAD`` past it."""
         past_wave = (q.device.type == "cuda"
                      and q.shape[0] > lanes_wave(q.device.index))
-        return self.launch(q, qd, target, THREAD if past_wave else LANES)
+        return THREAD if past_wave else LANES
+
+    def __call__(self, q, qd, target):
+        return self.launch(q, qd, target, self.pick(q))
+
+    # ------------------------------------------- one substep per launch
+    def seed(self, q, qd, target, lanes_per_env=None):
+        """The warm active set of the cold pre-solve on (q, qd, target):
+        ``(sat, sign)``.  A CPU tensor takes ``plain_seed``."""
+        if q.device.type == "cpu":
+            return self.plain_seed(q, qd, target)
+        sat = torch.empty(q.shape, dtype=torch.bool, device=q.device)
+        sign = torch.empty_like(q)
+        self._launch(q, qd, target, lanes_per_env or self.pick(q), 1, False,
+                     warm_out=(sat, sign), seed=True)
+        return sat, sign
+
+    def substep(self, q, qd, target, tau_ext=None, warm=None,
+                lanes_per_env=None):
+        """One substep: warm from ``warm = (sat, sign)`` or cold when it is
+        None, with the contact torque ``tau_ext`` (B, ndof) when given.
+        Returns (q, qd, the set after it, or None when cold).  A CPU tensor
+        takes ``plain_substep``."""
+        if q.device.type == "cpu":
+            return self.plain_substep(q, qd, target, tau_ext, warm)
+        warm_out = None
+        if warm is not None:
+            warm_out = (torch.empty_like(warm[0]), torch.empty_like(warm[1]))
+        q, qd = self._launch(q, qd, target, lanes_per_env or self.pick(q), 1,
+                             warm is not None, tau_ext=tau_ext, warm_in=warm,
+                             warm_out=warm_out)
+        return q, qd, warm_out
+
+    def _cols(self, *ts):
+        return [[t[:, d] for d in range(NDOF)] for t in ts]
+
+    def plain_seed(self, q, qd, target):
+        """``seed``'s plain version, on any device."""
+        _, _, (sat, sign) = S.motor_substep(
+            self.mc, *self._cols(q, qd, target), self.dt, self.ctrl_mode,
+            return_warm=True)
+        return torch.stack(sat, -1), torch.stack(sign, -1)
+
+    def plain_substep(self, q, qd, target, tau_ext=None, warm=None):
+        """``substep``'s plain version, on any device."""
+        q_, qd_, tgt_ = self._cols(q, qd, target)
+        tau = None if tau_ext is None else self._cols(tau_ext)[0]
+        if warm is None:
+            q2, qd2 = S.motor_substep(self.mc, q_, qd_, tgt_, self.dt,
+                                      self.ctrl_mode, tau_ext=tau)
+            return torch.stack(q2, -1), torch.stack(qd2, -1), None
+        q2, qd2, (sat, sign) = S.motor_substep(
+            self.mc, q_, qd_, tgt_, self.dt, self.ctrl_mode, tau_ext=tau,
+            warm=tuple(self._cols(*warm)))
+        return (torch.stack(q2, -1), torch.stack(qd2, -1),
+                (torch.stack(sat, -1), torch.stack(sign, -1)))
 
     def launch(self, q, qd, target, lanes_per_env):
         """Run the kernel with ``lanes_per_env`` (``LANES`` or ``THREAD``)
         whatever B is; a CPU tensor takes the plain version."""
+        if q.device.type == "cpu":
+            if lanes_per_env not in (LANES, THREAD):
+                raise ValueError(f"lanes_per_env is {LANES} or {THREAD}, "
+                                 f"got {lanes_per_env}")
+            return self.plain(q, qd, target)
+        return self._launch(q, qd, target, lanes_per_env, self.n_substeps,
+                            self.warm_start)
+
+    def _launch(self, q, qd, target, lanes_per_env, n_substeps, warm,
+                tau_ext=None, warm_in=None, warm_out=None, seed=False):
         if lanes_per_env not in (LANES, THREAD):
             raise ValueError(f"lanes_per_env is {LANES} or {THREAD}, "
                              f"got {lanes_per_env}")
-        if q.device.type == "cpu":
-            return self.plain(q, qd, target)
         if q.device.type != "cuda":
             raise ValueError(f"K1 runs on cuda or cpu tensors, got {q.device}")
-        for name, t in (("q", q), ("qd", qd), ("target", target)):
+        named = [("q", q, torch.float32), ("qd", qd, torch.float32),
+                 ("target", target, torch.float32)]
+        if tau_ext is not None:
+            named.append(("tau_ext", tau_ext, torch.float32))
+        for tag, pair in (("in", warm_in), ("out", warm_out)):
+            if pair is not None:
+                named += [(f"sat_{tag}", pair[0], torch.bool),
+                          (f"sign_{tag}", pair[1], torch.float32)]
+        for name, t, dtype in named:
             if t.device != q.device:
                 raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-            if t.dtype != torch.float32:
-                raise ValueError(f"{name} must be float32, got {t.dtype}")
+            if t.dtype != dtype:
+                raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
             if t.dim() != 2 or t.shape[1] != NDOF or t.shape != q.shape:
                 raise ValueError(
                     f"{name} must be (B, {NDOF}) like q, got {tuple(t.shape)}")
@@ -175,16 +259,20 @@ class CudaMotorSteps:
             if lib.motor_steps_model_floats() != self._table.size:
                 raise RuntimeError("model table does not match motor_steps.cu")
             self._fn = fn
-        q_out = torch.empty_like(q)
-        qd_out = torch.empty_like(qd)
+        q_out = None if seed else torch.empty_like(q)
+        qd_out = None if seed else torch.empty_like(qd)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        w_in = warm_in or (None, None)
+        w_out = warm_out or (None, None)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = self._fn(
             q.data_ptr(), qd.data_ptr(), target.data_ptr(),
-            q_out.data_ptr(), qd_out.data_ptr(), q.shape[0],
-            self._table.ctypes.data, self.n_substeps, self.dt,
+            ptr(q_out), ptr(qd_out), q.shape[0],
+            self._table.ctypes.data, n_substeps, self.dt,
             self.ctrl_mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
             D.MOTOR_LCP_WARM_ITERS, q.device.index, stream, lanes_per_env,
-            int(self.warm_start))
+            int(warm), ptr(tau_ext), ptr(w_in[0]), ptr(w_in[1]),
+            ptr(w_out[0]), ptr(w_out[1]), int(seed))
         if err != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {err}")
         self.launches += 1

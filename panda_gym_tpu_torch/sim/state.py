@@ -4,9 +4,9 @@
 The JAX package keeps one env's state in a flax struct and batches it with
 vmap.  Here ``EnvState`` is a dataclass of tensors whose leading dimension
 is the env batch, with a ``replace`` method in place of the struct's.  It
-holds the fields that the Reach family reads and writes; the free-body
-fields and the per-env PRNG key are not ported (randomness comes from an
-explicit ``torch.Generator``).  ``SceneParams`` stays host-side numpy: it is
+holds every field of the JAX state but the per-env PRNG key (randomness
+comes from an explicit ``torch.Generator``); a scene without free bodies
+(Reach, ReachAO) has nb = 0.  ``SceneParams`` stays host-side numpy: it is
 static per env class and only ever read.
 """
 from __future__ import annotations
@@ -60,6 +60,11 @@ class EnvState:
     q: torch.Tensor              # (B, ndof)
     qd: torch.Tensor             # (B, ndof)
     ctrl_target: torch.Tensor    # (B, ndof) motor target (position or velocity)
+    # free bodies (nb may be 0)
+    body_pos: torch.Tensor       # (B, nb, 3)
+    body_quat: torch.Tensor      # (B, nb, 4) xyzw
+    body_vel: torch.Tensor       # (B, nb, 3)
+    body_ang: torch.Tensor       # (B, nb, 3) world angular velocity
     # ReachAO obstacles (fixed capacity, active mask)
     obstacle_pos: torch.Tensor   # (B, no, 3)
     obstacle_vel: torch.Tensor   # (B, no, 3)

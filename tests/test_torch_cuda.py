@@ -1,5 +1,7 @@
-"""Card-only tests of the PyTorch port: kernel K1 against its plain version,
-the batched Reach and ReachAO envs, the trainer (HER sample and TQC
+"""Card-only tests of the PyTorch port: kernel K1 against its plain version
+(with its one-substep launches of the contact step: the seed, the carried
+active set, the contact torque), the batched Reach, ReachAO, Push and Slide
+envs, the trainer (HER sample and TQC
 update against the CPU, a short Reach run), the batched IK of the
 evaluation's start poses (against the CPU), and the paths of the NEO prior
 and the ee/pcc control modes (against the CPU) on the card.
@@ -103,6 +105,85 @@ def test_k1_checks_its_inputs(card):
     assert k1.launches == 1
 
 
+@pytest.mark.parametrize("lanes", [CD.LANES, CD.THREAD],
+                         ids=["lanes", "thread"])
+@pytest.mark.parametrize("B", [1, 1000])
+def test_k1_chained_warm_substeps_equal_one_launch(card, B, lanes):
+    """A seed launch and 20 warm one-substep launches that carry the set,
+    with tau_ext = 0, equal one warm 20-substep launch bit for bit."""
+    model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
+    k20 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=DT, ctrl_mode=0,
+                                   warm_start=True)
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=False)
+    q, qd, tgt = _inputs(model, B, 0, 21, card)
+    q20, qd20 = k20.launch(q, qd, tgt, lanes)
+    warm = k1.seed(q, qd, tgt, lanes)
+    psat, psign = k1.plain_seed(q, qd, tgt)
+    assert torch.equal(warm[0], psat) and torch.equal(warm[1], psign)
+    zero = torch.zeros_like(q)
+    for _ in range(20):
+        q, qd, warm = k1.substep(q, qd, tgt, zero, warm, lanes)
+    torch.cuda.synchronize()
+    assert k1.launches == 21 and k1.kernel_launches[lanes] == 21
+    assert torch.equal(q, q20) and torch.equal(qd, qd20)
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("lanes", [CD.LANES, CD.THREAD],
+                         ids=["lanes", "thread"])
+def test_k1_tau_ext_substep_matches_plain(card, lanes, warm):
+    """One substep with a random contact torque, from a random set (or
+    cold), against the plain substep: 2e-5 / 2e-3, the set equal."""
+    model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
+    B = 1000
+    q, qd, tgt = _inputs(model, B, 0, 31, card)
+    gen = torch.Generator(card).manual_seed(41)
+    tau = torch.randn(B, 7, generator=gen, device=card) * 20.0
+    w = None
+    if warm:
+        w = (torch.rand(B, 7, generator=gen, device=card) < 0.3,
+             torch.where(torch.rand(B, 7, generator=gen, device=card) < 0.5,
+                         -1.0, 1.0))
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=False)
+    qk, qdk, wk = k1.substep(q, qd, tgt, tau, w, lanes)
+    qp, qdp, wp = k1.plain_substep(q, qd, tgt, tau, w)
+    torch.cuda.synchronize()
+    assert (qk - qp).abs().max().item() <= ATOL_Q
+    assert (qdk - qdp).abs().max().item() <= ATOL_QD
+    if warm:
+        assert torch.equal(wk[0], wp[0]) and torch.equal(wk[1], wp[1])
+    else:
+        assert wk is None and wp is None
+
+
+@pytest.mark.parametrize("task", ["push", "slide"])
+def test_contact_step_k1_route_matches_plain(card, task):
+    """One Push or Slide policy step on the card: K1 with tau_ext, one seed
+    and 20 warm one-substep launches, against the plain route from the same
+    states, objects pushed by the arm in envs 0-7."""
+    env = make_core(task)
+    gen = torch.Generator(card).manual_seed(0)
+    states, obs = env.batched_reset(256, gen)
+    pos = states.body_pos.clone()
+    ee = env.robot.ee_position(K.fk_world(env.model, states.q))
+    pos[:8, 0] = ee[:8] + torch.tensor([0.02, 0.0, -0.01], device=card)
+    states = _hi_prec(env.robot.set_action)(
+        states.replace(body_pos=pos),
+        torch.rand(256, env.robot.action_dim, generator=gen, device=card)
+        * 2 - 1)
+    phys = env.physics_step_batched
+    out_k = phys(states)
+    out_p = phys(states, plain=True)
+    assert phys.motor.launches == 21
+    assert (out_k.q - out_p.q).abs().max().item() <= ATOL_Q
+    assert (out_k.qd - out_p.qd).abs().max().item() <= ATOL_QD
+    # the pushed objects moved; the others stay where they were on the table
+    assert ((out_k.body_pos[:8] - pos[:8]).abs().amax((1, 2)) > 1e-3).all()
+    assert ((out_k.body_pos[8:, 0, :2] - pos[8:, 0, :2]).abs() < 1e-4).all()
+
+
 def test_reach_on_card_matches_cpu(card):
     env_g = make_core("reach")
     env_c = make_core("reach", device="cpu")
@@ -150,7 +231,7 @@ def test_reach_ao_step_k1_route_matches_plain(card):
         torch.rand(256, 7, generator=gen, device=card) * 2 - 1)
     phys = env.physics_step_batched
     out_k = phys(states)
-    out_p = phys(states, phys.plain_substep_step)
+    out_p = phys(states, plain=True)
     assert phys.motor.launches == 20
     assert (out_k.q - out_p.q).abs().max().item() <= ATOL_Q
     assert (out_k.qd - out_p.qd).abs().max().item() <= ATOL_QD
@@ -180,16 +261,25 @@ def test_dls_ik_card_matches_cpu(card):
     assert (q_card.cpu() - q_cpu).abs().max().item() <= 1e-5
 
 
-def test_reach_ao_warm_on_card_raises(card, monkeypatch):
-    """K1 cannot carry the warm active set across its one-substep launches,
-    so the collision step refuses to run warm on the card."""
+def test_reach_ao_warm_on_card_matches_plain(card, monkeypatch):
+    """Under PANDA_LCP_WARM=1 the collision step runs warm on the card: a
+    seed launch and 20 one-substep launches that carry the active set,
+    against the plain warm route from the same states."""
     monkeypatch.setenv("PANDA_LCP_WARM", "1")
     monkeypatch.setattr(D, "LCP_WARM_START", True)
     env = make_reach_ao_core("reachao1")
-    states, _ = env.batched_reset(8, torch.Generator(card).manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        env.batched_step(states, torch.zeros(8, 7, device=card))
-    assert env.physics_step_batched.motor.launches == 0
+    gen = torch.Generator(card).manual_seed(0)
+    states, _ = env.batched_reset(256, gen)
+    states = _hi_prec(env.robot.set_action)(
+        states, torch.rand(256, 7, generator=gen, device=card) * 2 - 1)
+    phys = env.physics_step_batched
+    assert phys.warm_start
+    out_k = phys(states)
+    out_p = phys(states, plain=True)
+    assert phys.motor.launches == 21
+    assert (out_k.q - out_p.q).abs().max().item() <= ATOL_Q
+    assert (out_k.qd - out_p.qd).abs().max().item() <= ATOL_QD
+    assert torch.equal(out_k.is_collided, out_p.is_collided)
 
 
 # ------------------------------------------------------------------ training

@@ -158,13 +158,15 @@ def test_moving_obstacles_advance():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        make_core("push", device="cpu")
+    """The tasks of the next slice, and forces between free bodies."""
+    for task in ("pickandplace", "stack", "flip", "mycobotreach"):
+        with pytest.raises(NotImplementedError, match="13b"):
+            make_core(task, device="cpu")
     env = make_core("reach", device="cpu")
-    scene = build_scene([dict(shape=0, size=(0.02,) * 3, mass=1.0)],
-                        1.1, 0.7, 0.4)
-    with pytest.raises(NotImplementedError):
-        TE.make_batched_physics_step(env.model, scene)
+    cube = dict(shape=0, size=(0.02,) * 3, mass=1.0)
+    scene = build_scene([cube, cube], 1.1, 0.7, 0.4)
+    with pytest.raises(NotImplementedError, match="13b"):
+        TE.make_batched_physics_step(env.model, scene, body_pairs=((1, 0),))
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

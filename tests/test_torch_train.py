@@ -15,7 +15,7 @@ The port alone: the schedule against hand-derived numbers, stage advance
 and the final stage with a stubbed evaluate, kill-and-resume bit for bit,
 save / load with and without the buffer, the prior bootstrap, the
 NotImplementedError paths and the CLI (with its --benchmark and
---prior-steps).
+--prior-steps); a few Trainer.learn steps on Push and the classic-task CLI.
 """
 import json
 import os
@@ -34,7 +34,7 @@ from panda_gym_tpu_torch import convert
 from panda_gym_tpu_torch.envs.panda_tasks import make_core, make_reach_core
 from panda_gym_tpu_torch.envs.tasks import reach_ao as trao
 from panda_gym_tpu_torch.eval import benchmark as EB
-from panda_gym_tpu_torch.rl import cli
+from panda_gym_tpu_torch.rl import classic_cli, cli
 from panda_gym_tpu_torch.rl import learners as TL
 from panda_gym_tpu_torch.rl import train as TT
 from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
@@ -401,3 +401,50 @@ def test_cli(tmp_path, monkeypatch):
     assert all(r["scenario_episodes"] == 2 and r["mean_ep_length"] <= 2
                for r in bench.values())
     assert (run.parent / "b" / "benchmark.csv").exists()
+
+
+def test_trainer_learns_push(tmp_path):
+    """A classic task through make_env, as tools/train_classic.py runs it:
+    Push at n_envs 2, horizon 3, no benchmark scenes; the object block in
+    the observations, the goal-task reward from the HER batch, updates
+    that ran, and the buffer on the env's device."""
+    cfg = _small_cfg(n_envs=2, max_ep_steps=[3], max_timesteps=18,
+                     learning_starts=6, interleave_min_buffer=6,
+                     full_ckpt_freq=0, stages=["push"])
+    tr = TT.Trainer(cfg, lambda task, thr, spd: make_core(task, device="cpu"))
+    tr.learn()
+    assert tr.timesteps == 18 and tr.ts.step >= 1
+    assert tr.buffer.obs.shape[-1] == 18 and tr.buffer.aux.shape[-1] == 0
+    assert tr.buffer.device.type == "cpu"
+    rows = [r for r in tr.metrics.history if "rollout_reward" in r]
+    assert all(-3.0 <= r["rollout_reward"] <= 0.0 for r in rows)
+    assert all(np.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, float))
+
+
+def test_classic_cli(tmp_path, monkeypatch):
+    args = ["--task", "push", "--n-envs", "2", "--max-ep-steps", "2",
+            "--max-timesteps", "4", "--learning-starts", "2",
+            "--eval-freq", "4", "--n-eval-episodes", "2", "--name", "t"]
+    monkeypatch.chdir(tmp_path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            classic_cli.main(args)
+    tr = classic_cli.main(args + ["--device", "cpu"])
+    run = tmp_path / "training" / "run_data" / "classic" / "t"
+    for f in ("metrics.jsonl", "config.json", "final.ckpt",
+              "final_model.ckpt", "model_push_0.ckpt"):
+        assert (run / f).exists(), f
+    cfg = json.loads((run / "config.json").read_text())
+    assert cfg["stages"] == ["push"] and cfg["control_type"] == "js"
+    assert cfg["benchmark_eval_scenes"] == []
+    assert tr.timesteps == 4
+    slide = classic_cli.main(["--task", "slide", "--n-envs", "2",
+                              "--max-ep-steps", "2", "--max-timesteps", "2",
+                              "--name", "s", "--device", "cpu"])
+    assert slide.learner.act_dim == 3
+    with pytest.raises(NotImplementedError, match="13b"):
+        classic_cli.main(["--task", "stack", "--device", "cpu"])
+    with pytest.raises(NotImplementedError):
+        classic_cli.main(args + ["--device", "cpu", "--algorithm", "TD3",
+                                 "--name", "td3"])
