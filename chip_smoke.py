@@ -6,7 +6,8 @@
 
 K1, the motor dynamics, is two kernels of one source: the lane-group kernel
 (8 lanes per env) and the one-env-per-thread kernel; the wrapper picks one
-from B and the card.  Phases, one progress line each:
+from B and the card for the welded Panda, and runs the one-env-per-thread
+kernel, built for each chain, for MyCobot and the 9-dof Panda.  Phases, one progress line each:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles every kernel of the main path with nvcc (sm_90a) and
      prints ptxas's registers and spill, each kernel's static SASS size and
@@ -135,6 +136,31 @@ from B and the card.  Phases, one progress line each:
      on the card; ms per collect env step and per TQC update); K1 per warm
      one-substep launch with tau_ext at B 64, 4096 and 16384 beside its
      bound.
+  12. K1 on MyCobot's 6 dofs and on the 9-dof Panda with prismatic fingers
+     (the one-env-per-thread kernel at every B; phase 2 reports both
+     instantiations): MyCobot against its plain version at B 1, 4096 and
+     4100 and at 65536 by phase 3's near-tie rule (20 warm substeps,
+     position and velocity control); the 9-dof Panda's seed launch and one
+     warm substep with tau_ext from the carried set at B 1, 4096 and 4100
+     (q 2e-5, qd 2e-3, the sets equal); make_core("mycobotreach") through
+     phase 4's main path at 4096 (10 steps) and 65536 (3), K1 once per
+     step, the first two steps against the plain physics, and the step's
+     median of 10; PickAndPlace at 16384 and 64, Flip and Stack at 4096,
+     ee control, 3 steps, envs 0-7 with the cube between open fingers and
+     a closing action, Stack's envs 8-15 with the second cube 1.5 mm into
+     the first: K1 rose by 21 per step, tau_ext on both finger dofs, the
+     fingers and the cube moved, the stacked cube rests on the first (its
+     z within 1e-3 of the first's + 0.04), untouched cubes rest on the
+     table, the K1 route held against the plain route by phase 11's rule
+     (PickAndPlace's and Flip's gripped envs' object velocities at 3e-3,
+     the gap printed), the step's median of
+     10 and a profile; Trainer.learn on PickAndPlace under tqc_pickandplace's
+     configuration (TQC at full width, n_envs 64, horizon 50), cut to one
+     collect rollout and its burst (21 launches per env step, losses
+     finite, the buffer on the card); K1 per launch beside its bound
+     (MyCobot's 20 warm substeps at B 64, 4096 and 65536, the 9-dof
+     Panda's warm substep with tau_ext at 64, 4096 and 16384); the phase's
+     wall time.
 
 The line before the last is one JSON object with a row per kernel path
 (K1 on each path above); the last line is {"ok": true, "device": {...}}.
@@ -236,12 +262,13 @@ def motor_inputs(model, B, ctrl_mode, rng, device):
     """States as tests/test_dynamics.py draws them: q in the joint limits,
     qd ~ N(0, 0.5); position targets near q, velocity targets ~ N(0, 1)."""
     lo, hi = np.asarray(model.q_lo), np.asarray(model.q_hi)
-    q = rng.uniform(lo, hi, (B, 7))
-    qd = rng.normal(0.0, 0.5, (B, 7))
+    n = lo.shape[0]
+    q = rng.uniform(lo, hi, (B, n))
+    qd = rng.normal(0.0, 0.5, (B, n))
     if ctrl_mode == 0:
-        tgt = q + rng.normal(0.0, 0.05, (B, 7))
+        tgt = q + rng.normal(0.0, 0.05, (B, n))
     else:
-        tgt = rng.normal(0.0, 1.0, (B, 7))
+        tgt = rng.normal(0.0, 1.0, (B, n))
     return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                  for a in (q, qd, tgt))
 
@@ -316,11 +343,20 @@ def time_cuda(fn, reps, warmup=2, queued=False):
     return t0.elapsed_time(t1) / reps
 
 
-# bytes per env of a K1 launch: q, qd, target read and q, qd written; and
-# of a one-substep launch of the contact step, which also reads tau_ext and
-# the carried set (sat as bytes, sign) and writes the set
-K1_BYTES = 140
-K1_SUBSTEP_BYTES = 4 * 7 * 4 + 7 + 28 + 2 * 7 * 4 + 7 + 28
+# bytes per env of a K1 launch of an n-dof chain: q, qd, target read and q,
+# qd written (20 n); and of a one-substep launch of the contact step, which
+# also reads tau_ext and the carried set (sat as bytes, sign) and writes
+# the set (34 n)
+def k1_bytes(n):
+    return 5 * n * 4
+
+
+def k1_substep_bytes(n):
+    return 4 * n * 4 + n + 4 * n + 2 * n * 4 + n + 4 * n
+
+
+K1_BYTES = k1_bytes(7)
+K1_SUBSTEP_BYTES = k1_substep_bytes(7)
 
 
 def k1_bound_ms(n_ops, B, bytes_per_env=K1_BYTES):
@@ -360,9 +396,47 @@ def time_step(make_core, B, dev, card):
     return env, states, acts
 
 
-def profile_step(env, states, acts, card, n=5, tag="phase 6"):
+# the device work of a torch.profiler trace: kernels, copies and fills
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_work(prof):
+    """A profiled run's device work, {name: [launches, us]}, read from its
+    Chrome trace: parsing the trace takes ~2 s for a step of ~26k launches,
+    key_averages() ~10 times as long."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if str(e.get("cat", "")).lower() in DEVICE_CATS and e.get("dur", 0) > 0:
+            w = out.setdefault(e["name"], [0, 0.0])
+            w[0] += 1
+            w[1] += e["dur"]
+    return out
+
+
+def key_average_work(prof):
+    """The same profile's device work as key_averages() reads it, the
+    device-side CUDA events with self time (the profiles' reader before the
+    Chrome trace), {name: [launches, us]}."""
+    out = {}
+    for e in prof.key_averages():
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and getattr(e, "self_device_time_total", 0) > 0
+                and not getattr(e, "is_user_annotation", False)):
+            out[e.key] = [e.count, e.self_device_time_total]
+    return out
+
+
+def profile_step(env, states, acts, card, n=5, tag="phase 6",
+                 both_readers=False):
     """Where a batched_step's time goes: torch.profiler over n steps, the
-    card's busy share of the wall time and the kernels that take most."""
+    card's busy share of the wall time and the kernels that take most.
+    With ``both_readers``, the same profile also read by key_averages(),
+    and the kernels whose launches the two readers count differently."""
     from torch.profiler import ProfilerActivity, profile
 
     B = states.q.shape[0]
@@ -374,21 +448,28 @@ def profile_step(env, states, acts, card, n=5, tag="phase 6"):
             states, *_ = env.batched_step(states, acts[i % len(acts)])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    work = device_work(prof)
+    busy_us = sum(us for _, us in work.values())
     if busy_us == 0:
         fail(f"{tag} profile: the profiler saw no device time")
-    n_launch = sum(e.count for e in kernels)
+    n_launch = sum(k for k, _ in work.values())
     say(f"{tag} profile of {n} batched_step at B={B}: wall "
         f"{wall_us / n:.0f} us/step, card busy {busy_us / n:.0f} us/step "
         f"({100 * busy_us / wall_us:.1f}%), {n_launch / n:.0f} kernel "
         f"launches/step | {card}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        say(f"  {e.self_device_time_total / n:9.1f} us/step "
-            f"{e.count / n:6.1f}x  {e.key[:90]}")
+    for name, (k, us) in sorted(work.items(), key=lambda w: -w[1][1])[:8]:
+        say(f"  {us / n:9.1f} us/step {k / n:6.1f}x  {name[:90]}")
+    if both_readers:
+        old = key_average_work(prof)
+        say(f"{tag} the same profile read by key_averages(): "
+            f"{sum(us for _, us in old.values()) / n:.0f} us/step busy, "
+            f"{sum(k for k, _ in old.values()) / n:.0f} launches/step | "
+            f"{card}")
+        for name in sorted(set(work) | set(old)):
+            a, b = work.get(name, [0])[0], old.get(name, [0])[0]
+            if a != b:
+                say(f"  trace {a / n:.1f}x, key_averages() {b / n:.1f}x per "
+                    f"step  {name[:90]}")
 
 
 def k1_times(CD, model, rng, dev, card, each_kernel):
@@ -423,7 +504,7 @@ def step_times(make_core, dev, card):
     path's batch and at bench.py's."""
     runs = [time_step(make_core, B, dev, card) for B in (B_MAIN, B_BENCH)]
     for env, states, acts in runs:
-        profile_step(env, states, acts, card)
+        profile_step(env, states, acts, card, both_readers=True)
 
 
 KERNEL_NAMES = {8: "lane-group", 1: "one env per thread"}
@@ -440,7 +521,7 @@ def is_near_tie(k1, lanes, q, qd, tgt, b, dev):
     the tolerance on at least one copy.  Returns (near-tie, copies agreeing,
     plain spread in qd)."""
     g = torch.Generator(device=dev).manual_seed(b)
-    noise = 1e-6 * torch.randn(16, 7, generator=g, device=dev)
+    noise = 1e-6 * torch.randn(16, q.shape[1], generator=g, device=dev)
     noise[0] = 0.0
     x = [(t[b:b + 1] * (1.0 + noise)).contiguous() for t in (q, qd, tgt)]
     qp, qdp = k1.plain(*x)
@@ -513,13 +594,13 @@ def hold_with_ties(k1, lanes, x, out, ref, label, dev):
 
 
 def drive(make_core, _hi_prec, CD, B, n_steps, dev, control="js",
-          tag="phase 4"):
+          tag="phase 4", task="reach"):
     """The main path at batch B: batched_reset, then n_steps batched_step
-    calls with random actions (Reach under ``control``), K1's counts set to
-    0 just before and read just after.  Returns the per-kernel launch
-    counts, the largest error of the first two steps against the plain
-    physics, and the first step's states and actions."""
-    env = make_core("reach", control_type=control, device="cuda")
+    calls with random actions (Reach, or MyCobotReach, under ``control``),
+    K1's counts set to 0 just before and read just after.  Returns the
+    per-kernel launch counts, the largest error of the first two steps
+    against the plain physics, and the first step's states and actions."""
+    env = make_core(task, control_type=control, device="cuda")
     motor = env.physics_step_batched.motor
     # a second wrapper of the same kernels for the near-tie checks, whose
     # launches stay out of the main path's counts
@@ -531,7 +612,7 @@ def drive(make_core, _hi_prec, CD, B, n_steps, dev, control="js",
     gen = torch.Generator(device=dev).manual_seed(SEED)
     states, obs = env.batched_reset(B, gen)
     err = 0.0
-    picked = CD.LANES if B <= CD.lanes_wave(dev.index) else CD.THREAD
+    picked = motor.pick(states.q)
     first = None
     motor.launches = 0
     motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
@@ -570,8 +651,8 @@ def drive(make_core, _hi_prec, CD, B, n_steps, dev, control="js",
         "q in limits": bool(((states.q >= q_lo) & (states.q <= q_hi)).all()),
         "steps": bool((states.steps == n_steps).all()),
     }
-    say(f"{tag} main path: {n_steps} batched_step at B={B} ({control} "
-        f"control), K1 launches "
+    say(f"{tag} main path: {task}, {n_steps} batched_step at B={B} "
+        f"({control} control), K1 launches "
         f"{ {KERNEL_NAMES[k]: v for k, v in counts.items()} }, success rate "
         f"{info['is_success'].float().mean().item():.4f}, checks {checks}")
     if not all(checks.values()):
@@ -958,23 +1039,17 @@ def profile_once(fn, label, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # the optimizers' record_function ranges appear on the device timeline
-    # as user annotations spanning their kernels: not kernels themselves
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    # as user annotations spanning their kernels, a category of their own
+    work = device_work(prof)
+    busy_us = sum(us for _, us in work.values())
     if busy_us == 0:
         fail(f"{label} profile: the profiler saw no device time")
-    n_launch = sum(e.count for e in kernels)
+    n_launch = sum(k for k, _ in work.values())
     say(f"{label}: wall {wall_us:.0f} us, card busy {busy_us:.0f} us "
         f"({100 * busy_us / wall_us:.1f}%), {n_launch} kernel launches | "
         f"{card}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        say(f"  {e.self_device_time_total:9.1f} us {e.count:5d}x  "
-            f"{e.key[:90]}")
+    for name, (k, us) in sorted(work.items(), key=lambda w: -w[1][1])[:6]:
+        say(f"  {us:9.1f} us {k:5d}x  {name[:90]}")
     return n_launch, busy_us, wall_us
 
 
@@ -1878,22 +1953,27 @@ def route_tie(phys, states, b, diff, dev):
     route sits at a tie of the reference: its state copied 16 times, q of
     copies 1-15 scaled by 1 + 1e-6 N(0, 1), through both routes; a tie if
     the plain results of the copies spread beyond the tolerance and the two
-    routes agree on at least one copy.  Returns (tie, copies agreeing)."""
+    routes agree on at least one copy.  ``diff(a, b, idx)`` compares two
+    batches whose rows are the envs ``idx``.  Returns (tie, copies
+    agreeing)."""
     g = torch.Generator(device=dev).manual_seed(b)
-    noise = 1e-6 * torch.randn(16, 7, generator=g, device=dev)
+    noise = 1e-6 * torch.randn(16, states.q.shape[1], generator=g,
+                               device=dev)
     noise[0] = 0.0
     s16 = take(states, [b] * 16)
     s16 = s16.replace(q=(s16.q * (1.0 + noise)).contiguous())
     k, p = phys(s16), phys(s16, plain=True)
-    spread = bool(diff(p, take(p, [0] * 16)).any())
-    agree = ~diff(k, p)
+    idx = torch.full((16,), b, device=dev)
+    spread = bool(diff(p, take(p, [0] * 16), idx).any())
+    agree = ~diff(k, p, idx)
     return spread and bool(agree.any()), int(agree.sum())
 
 
 def hold_step_routes(phys, s_in, diff, label, dev, card):
     """One policy step of ``phys`` on its K1 route and its plain route from
-    the same states: every env within the tolerances (``diff``), or at most
-    MAX_TIES of them ties (route_tie).  Returns (the K1 route's output, the
+    the same states: every env within the tolerances (``diff(a, b, idx)``,
+    idx the envs of the rows), or at most MAX_TIES of them ties
+    (route_tie).  Returns ((the K1 route's output, the plain route's), the
     largest q/qd error over the agreeing envs, the plain route's ms)."""
     out_k = phys(s_in)
     torch.cuda.synchronize()
@@ -1901,7 +1981,8 @@ def hold_step_routes(phys, s_in, diff, label, dev, card):
     out_p = phys(s_in, plain=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bad = diff(out_k, out_p).nonzero().flatten().tolist()
+    bad = diff(out_k, out_p, torch.arange(s_in.q.shape[0], device=dev)
+               ).nonzero().flatten().tolist()
     good = torch.ones(s_in.q.shape[0], dtype=torch.bool, device=dev)
     good[bad] = False
     err = max((out_k.q - out_p.q)[good].abs().max().item(),
@@ -1921,7 +2002,7 @@ def hold_step_routes(phys, s_in, diff, label, dev, card):
         if not tie:
             fail(f"{label}: the K1 route disagrees with the plain route on "
                  f"env {b}")
-    return out_k, err, plain_ms
+    return (out_k, out_p), err, plain_ms
 
 
 def push_objects(env, states, dev):
@@ -2016,7 +2097,7 @@ def drive_contact(make_core, _hi_prec, CD, task, B, n_steps, dev, card):
     cmp = copy.copy(phys)
     cmp.motor = twin
     _, err, plain_ms = hold_step_routes(
-        cmp, s_in, lambda a, b: contact_diff(env, a, b),
+        cmp, s_in, lambda a, b, idx: contact_diff(env, a, b),
         f"phase 11 {task} B={B}", dev, card)
     step_ms = time_contact(env, s, acts[n_steps:], task, card,
                            f", the plain route {plain_ms:.1f} ms for the "
@@ -2024,26 +2105,31 @@ def drive_contact(make_core, _hi_prec, CD, task, B, n_steps, dev, card):
     return counts, err, step_ms
 
 
-def time_contact(env, s, acts, task, card, note=""):
-    """The contact step's time: one step to warm up, then each of the
-    remaining steps timed alone between two synchronizes (median, min and
-    max); then one profiled step, its launches and the card's busy
-    share."""
+def time_contact(env, s, acts, task, card, note="", tag="phase 11",
+                 warm_up=True, profile=True, both_readers=False):
+    """The contact step's time: one step to warm up (unless the caller's
+    steps warmed it), then each of the remaining steps timed alone between
+    two synchronizes (median, min and max); then, with ``profile``, one
+    profiled step, its launches and the card's busy share."""
     B = s.q.shape[0]
-    s, *_ = env.batched_step(s, acts[0])
+    if warm_up:
+        s, *_ = env.batched_step(s, acts[0])
+        acts = acts[1:]
     ms = []
-    for a in acts[1:]:
+    for a in acts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s, *_ = env.batched_step(s, a)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     step_ms = float(np.median(ms))
-    say(f"phase 11 {task} batched_step B={B}: median {step_ms:.1f} ms/step "
+    say(f"{tag} {task} batched_step B={B}: median {step_ms:.1f} ms/step "
         f"over {len(ms)} steps (min {min(ms):.1f}, max {max(ms):.1f}; "
         f"{B / step_ms * 1e3:.0f} env-steps/s at the median) on the K1 "
         f"route{note} | {card}")
-    profile_step(env, s, acts[:1], card, n=1, tag=f"phase 11 {task}")
+    if profile:
+        profile_step(env, s, acts[:1], card, n=1, tag=f"{tag} {task}",
+                     both_readers=both_readers)
     return step_ms
 
 
@@ -2126,7 +2212,8 @@ def drive_reach_ao_warm(CD, _hi_prec, dev, card):
     cmp.motor = CD.make_cuda_motor_steps(env.model, n_substeps=1, dt=DT,
                                          ctrl_mode=motor.ctrl_mode,
                                          warm_start=False)
-    _, err, _ = hold_step_routes(cmp, s_in, route_diff,
+    _, err, _ = hold_step_routes(cmp, s_in,
+                                 lambda a, b, idx: route_diff(a, b),
                                  f"phase 11 reachao1 warm B={B_MAIN}", dev,
                                  card)
     return motor.launches, err
@@ -2185,6 +2272,426 @@ def drive_push_training(CD, dev, card, run_root):
         f"steps in {seconds:.2f} s | {card}")
     update_times(trainer, core, card, "phase 11 Push")
     return counts[CD.LANES]
+
+
+# ----------------------------------------------------------------- phase 12
+# K1 on the chains besides the welded Panda: MyCobot's 6 serial revolute
+# dofs (MyCobotReach, robot-only: one launch of 20 warm substeps per step)
+# and the 9-dof Panda whose prismatic fingers hang from link 6
+# (PickAndPlace, Flip and Stack on the contact path: a seed and 20 warm
+# one-substep launches with tau_ext per step).  Both run the
+# one-env-per-thread kernel at every B.
+CHAIN_CHECK_B = (1, B_MAIN, B_MAIN + 4)
+MYCOBOT_MAIN = ((B_MAIN, 10), (B_BENCH, 3))
+# PickAndPlace at bench.py's free-body batch and the trainer's n_envs,
+# Flip and Stack at the main path's B; 3 steps each on the main path
+GRIPPER = (("pickandplace", 16384), ("pickandplace", N_ENVS),
+           ("flip", B_MAIN), ("stack", B_MAIN))
+GRIPPER_STEPS = 3
+# envs 0-7: the cube between the open fingers (3 cm each, the capsules
+# 2 mm deep in its faces) and a closing action (2 mm of width per step);
+# Stack's envs 8-15: the second cube 1.5 mm into the top of the first
+FINGER_Q, FINGER_CLOSE = 0.03, -0.02
+STACKED = 0.04 - 0.0015
+# a cube squeezed by two fingers is stiff in rotation (the JAX package's own
+# two steps part by up to 1.4e-2 in its velocities over 3 steps,
+# tests/test_torch_gripper.py): on an H100 the K1 route and the plain route
+# part by up to 1.13e-3 (PickAndPlace) and 1.48e-3 (Flip) in the gripped
+# envs' last 6 observation entries (the object's velocities) from this
+# script's states, which are held at twice that
+ATOL_GRIP_VEL = 3e-3
+# K1 timed: MyCobot's 20 warm substeps, the 9-dof Panda's warm substep
+# with tau_ext
+B_MYCOBOT_TIMED = (N_ENVS, B_MAIN, B_BENCH)
+B_GRIPPER_TIMED = (N_ENVS, B_MAIN, 16384)
+# Trainer.learn on PickAndPlace under the committed
+# training/run_data/round2_classic/tqc_pickandplace/config.json (the chip
+# machine's copy leaves training/ out): TQC at full width [256, 256], 25
+# quantiles, n_envs 64, horizon 50, the reference's ee control (the file
+# records TrainConfig's js default of its day); cut to one collect rollout
+# of 64 x 50 and its burst
+PNP_TRAIN = dict(n_envs=64, horizon=50, net_arch=[256, 256], n_quantiles=25)
+
+
+def chain_models():
+    """MyCobot (the reference's zero efforts) and the 9-dof Panda, at the
+    classic tasks' base."""
+    from panda_gym_tpu_torch.models.mycobot import make_mycobot_model
+    from panda_gym_tpu_torch.models.panda import make_panda_model
+
+    base = (-0.6, 0.0, 0.0)
+    return {"mycobot": make_mycobot_model(base_position=base),
+            "panda9": make_panda_model(base_position=base,
+                                       gripper="prismatic")}
+
+
+def check_mycobot_k1(CD, model, rng, dev):
+    """K1 on MyCobot against its plain version, 20 warm substeps, position
+    and velocity control, at B 1, 4096 and 4100, and at bench.py's 65536
+    under phase 3's near-tie rule.  Returns the largest error."""
+    err = 0.0
+    for ctrl_mode in (0, 1):
+        k1 = CD.make_cuda_motor_steps(model, n_substeps=N_SUBSTEPS, dt=DT,
+                                      ctrl_mode=ctrl_mode, warm_start=True)
+        for B in CHAIN_CHECK_B + (B_BENCH,):
+            q, qd, tgt = motor_inputs(model, B, ctrl_mode, rng, dev)
+            qp, qdp = k1.plain(q, qd, tgt)
+            out = k1.launch(q, qd, tgt, CD.THREAD)
+            label = (f"phase 12 K1 MyCobot (6 dofs) vs plain: ctrl_mode="
+                     f"{ctrl_mode} B={B}")
+            err = max(err, hold_with_ties(k1, CD.THREAD, (q, qd, tgt), out,
+                                          (qp, qdp), label, dev))
+    return err
+
+
+def check_gripper_k1(CD, model, rng, dev):
+    """K1 on the 9-dof Panda against its plain version at B 1, 4096 and
+    4100: the seed launch (its active set equal to the plain seed's), then
+    one warm substep with a contact torque from the carried set (q, qd
+    within the tolerances, the set equal).  Returns the largest error."""
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=False)
+    err = 0.0
+    for B in CHAIN_CHECK_B:
+        q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
+        tau = 5.0 * torch.randn(B, 9, device=dev)
+        warm = k1.seed(q, qd, tgt)
+        psat, _ = k1.plain_seed(q, qd, tgt)
+        qk, qdk, wk = k1.substep(q, qd, tgt, tau, warm)
+        qp, qdp, wp = k1.plain_substep(q, qd, tgt, tau, warm)
+        torch.cuda.synchronize()
+        eq = (qk - qp).abs().max().item()
+        eqd = (qdk - qdp).abs().max().item()
+        ok = (eq <= ATOL_Q and eqd <= ATOL_QD and torch.equal(warm[0], psat)
+              and torch.equal(wk[0], wp[0]) and torch.equal(wk[1], wp[1]))
+        say(f"phase 12 K1 9-dof Panda vs plain: seed, then one warm substep "
+            f"with tau_ext, B={B}: seed set equal "
+            f"{torch.equal(warm[0], psat)}, max|dq|={eq:.3e} (atol "
+            f"{ATOL_Q}) max|dqd|={eqd:.3e} (atol {ATOL_QD}), carried set "
+            f"equal {torch.equal(wk[0], wp[0])} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K1 on the 9-dof Panda disagrees with its plain version "
+                 f"at B={B}")
+        err = max(err, eq, eqd)
+    return err
+
+
+def chain_k1_times(CD, models, rng, dev, card):
+    """K1 per launch on the two chains beside its bound: MyCobot's 20 warm
+    substeps at B_MYCOBOT_TIMED, the 9-dof Panda's warm substep with
+    tau_ext at B_GRIPPER_TIMED (operations counted on the chain's plain
+    version, bytes from its dofs), and the plain version's time.  Returns
+    {chain: ({B: (ms, plain_ms, bound_ms)}, ops, bytes per env)}."""
+    out = {}
+    model = models["mycobot"]
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=N_SUBSTEPS, dt=DT,
+                                  ctrl_mode=0, warm_start=True)
+    ops, nbytes = count_plain_ops(model, 0), k1_bytes(6)
+    times = {}
+    for B in B_MYCOBOT_TIMED:
+        q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
+        ms = time_cuda(lambda: k1(q, qd, tgt), 10 if B > B_MAIN else 20,
+                       queued=True)
+        plain_ms = time_cuda(lambda: k1.plain(q, qd, tgt), 1, warmup=0)
+        bound = k1_bound_ms(ops, B, nbytes)
+        times[B] = (ms, plain_ms, bound)
+        say(f"phase 12 K1 MyCobot 20 warm substeps B={B}: {ms:.4f} ms/launch, "
+            f"bound {bound:.6f} ms ({ops} fp32 ops/env counted from the plain "
+            f"version, {nbytes} bytes/env), {ms / bound:.1f}x the bound; "
+            f"plain version {plain_ms:.1f} ms | {card}")
+    out["mycobot"] = (times, ops, nbytes)
+    model = models["panda9"]
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=False)
+    tau1 = torch.full((1, 9), 10.0)
+    warm1 = (torch.zeros(1, 9, dtype=torch.bool), torch.ones(1, 9))
+    ops = count_plain_ops(model, 0, step=lambda q, qd, tgt: k1.plain_substep(
+        q, qd, tgt, tau1, warm1))
+    nbytes = k1_substep_bytes(9)
+    times = {}
+    for B in B_GRIPPER_TIMED:
+        q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
+        tau = 10.0 * torch.randn(B, 9, device=dev)
+        warm = k1.seed(q, qd, tgt)
+        ms = time_cuda(lambda: k1.substep(q, qd, tgt, tau, warm), 20,
+                       queued=True)
+        plain_ms = time_cuda(lambda: k1.plain_substep(q, qd, tgt, tau, warm),
+                             1, warmup=1)
+        bound = k1_bound_ms(ops, B, nbytes)
+        times[B] = (ms, plain_ms, bound)
+        say(f"phase 12 K1 9-dof Panda one warm substep with tau_ext B={B}: "
+            f"{ms:.4f} ms/launch, bound {bound:.6f} ms ({ops} fp32 ops/env "
+            f"counted from the plain substep, {nbytes} bytes/env), "
+            f"{ms / bound:.1f}x the bound; plain version {plain_ms:.1f} ms "
+            f"| {card}")
+    out["panda9"] = (times, ops, nbytes)
+    return out
+
+
+def grip_objects(env, states, dev):
+    """Envs 0-7 with open fingers and the cube between them, turned with the
+    hand; Stack's envs 8-15 with the second cube put on the first."""
+    from panda_gym_tpu_torch.ops import kinematics as K
+
+    n = N_FORCED
+    q = states.q.clone()
+    q[:n, 7:9] = FINGER_Q
+    p0, p1 = K.capsule_endpoints_world(env.model, K.fk_world(env.model, q))
+    mid = 0.5 * (p0 + p1)
+    left, right = (env.model.cap_body_tuple.index(d) for d in (7, 8))
+    d = mid[:n, right] - mid[:n, left]
+    yaw = torch.atan2(d[:, 1], d[:, 0])
+    pos, quat = states.body_pos.clone(), states.body_quat.clone()
+    pos[:n, 0] = 0.5 * (mid[:n, left] + mid[:n, right])
+    zero = torch.zeros_like(yaw)
+    quat[:n, 0] = torch.stack([zero, zero, torch.sin(yaw / 2),
+                               torch.cos(yaw / 2)], -1)
+    if env.task.scene.nb > 1:
+        pos[n:2 * n, 1] = pos[n:2 * n, 0] + torch.tensor([0.0, 0.0, STACKED],
+                                                         device=dev)
+        quat[n:2 * n, 1] = quat[n:2 * n, 0]
+    return states.replace(q=q, ctrl_target=q.clone(), body_pos=pos,
+                          body_quat=quat)
+
+
+def gripper_diff(env, a, b, idx):
+    """contact_diff; with one object (PickAndPlace, Flip), the last 6
+    observation entries (the object's velocity and angular velocity) of the
+    gripped envs held at ATOL_GRIP_VEL.  Stack is held by phase 11's rule
+    throughout."""
+    sa, oa, ra, *_ = env._step_post(a)
+    sb, ob, rb, *_ = env._step_post(b)
+    atol = torch.full_like(oa["observation"], ATOL_OBS)
+    if env.task.scene.nb == 1:
+        atol[idx < N_FORCED, -6:] = ATOL_GRIP_VEL
+    return (((a.q - b.q).abs() > ATOL_Q).any(1)
+            | ((a.qd - b.qd).abs() > ATOL_QD).any(1)
+            | ((oa["observation"] - ob["observation"]).abs() > atol).any(1)
+            | ((ra - rb).abs() > ATOL_REWARD))
+
+
+def drive_gripper(make_core, _hi_prec, CD, task, B, dev, card,
+                  profile=True):
+    """Phase 12 for one gripper task at batch B: the main path
+    (batched_reset, grip_objects, GRIPPER_STEPS batched_step calls under ee
+    control, the gripped envs closing), K1's counts set to 0 just before
+    and read just after; the checks; the K1 route held against the plain
+    route on the first step's states; the step's time and, with
+    ``profile``, a profile.  Returns (counts, largest K1 error, step ms)."""
+    env = make_core(task)
+    phys = env.physics_step_batched
+    motor = phys.motor
+    twin = CD.make_cuda_motor_steps(env.model, n_substeps=1, dt=DT,
+                                    ctrl_mode=motor.ctrl_mode,
+                                    warm_start=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, _ = env.batched_reset(B, gen)
+    states = grip_objects(env, states, dev)
+    start = states.body_pos.clone()
+    acts = [torch.rand(B, 4, generator=gen, device=dev) * 2.0 - 1.0
+            for _ in range(GRIPPER_STEPS + N_TIMED)]
+    for a in acts:
+        a[:N_FORCED, 3] = FINGER_CLOSE
+    s_in = _hi_prec(env.robot.set_action)(states, acts[0])
+    *_, tau0, _ = _hi_prec(phys.forces)(s_in.q, s_in.qd, s_in.body_pos,
+                                        s_in.body_quat, s_in.body_vel,
+                                        s_in.body_ang)
+    motor.launches = 0
+    motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+    s = states
+    for i in range(GRIPPER_STEPS):
+        s, obs, reward, terminated, truncated, info = env.batched_step(
+            s, acts[i])
+    torch.cuda.synchronize()
+    counts = dict(motor.kernel_launches)
+    want = {CD.LANES: 0, CD.THREAD: K1_PER_CONTACT_STEP * GRIPPER_STEPS}
+    n = N_FORCED
+    moved = (s.body_pos[:, 0] - start[:, 0]).abs().amax(1)
+    fingers = (s.q[:n, 7:9] - states.q[:n, 7:9]).abs().amin(1)
+    rest = rest_height(env.task.scene)
+    stacked = task == "stack"
+    # untouched: not gripped (nor stacked), the arm never reached the
+    # object; in Stack the second cube, dropped by the reset 4 cm above the
+    # table, must also have fallen clear of the first
+    untouched = (s.body_pos[:, 0, :2] - start[:, 0, :2]).abs().amax(1) < 1e-4
+    untouched[:2 * n if stacked else n] = False
+    if stacked:
+        untouched &= (s.body_pos[:, 1, :2] - s.body_pos[:, 0, :2]).norm(
+            dim=1) > 0.045
+    q_lo = torch.as_tensor(env.model.q_lo, device=dev)
+    q_hi = torch.as_tensor(env.model.q_hi, device=dev)
+    body = torch.cat([s.body_pos, s.body_quat, s.body_vel, s.body_ang], -1)
+    obs_dim = {"pickandplace": 19, "flip": 20, "stack": 31}[task]
+    checks = {
+        f"K1: {K1_PER_CONTACT_STEP} launches per step (a seed and "
+        f"{N_SUBSTEPS} substeps), all on the one-env-per-thread kernel":
+            counts == want and motor.launches == sum(want.values()),
+        "gripped envs: tau_ext on both finger dofs": bool(
+            (tau0[:n, 7:9].abs() > 1e-3).all()),
+        "gripped envs: the finger dofs moved": bool((fingers > 1e-4).all()),
+        "gripped envs: the cube moved": bool((moved[:n] > 1e-4).all()),
+        "untouched objects rest on the table (z within 1e-3)": bool(
+            ((s.body_pos[untouched, 0, 2] - rest).abs() < 1e-3).all()),
+        "obs, reward, state finite": bool(
+            torch.isfinite(obs["observation"]).all()
+            and torch.isfinite(reward).all() and torch.isfinite(body).all()
+            and torch.isfinite(s.q).all() and torch.isfinite(s.qd).all()),
+        "obs shape": tuple(obs["observation"].shape) == (B, obs_dim),
+        "reward in {-1, 0}": bool(((reward == 0) | (reward == -1)).all()),
+        "q in limits": bool(((s.q >= q_lo) & (s.q <= q_hi)).all()),
+        "steps": bool((s.steps == GRIPPER_STEPS).all()),
+    }
+    note = ""
+    if stacked:
+        top = s.body_pos[n:2 * n, 1]
+        rise = top[:, 2] - s.body_pos[n:2 * n, 0, 2]
+        off = (top[:, :2] - s.body_pos[n:2 * n, 0, :2]).abs().amax(1)
+        checks["stacked envs: the second cube rests on the first (its z "
+               "within 1e-3 of the first's + 0.04, x and y within 1e-3)"] = \
+            bool(((rise - 0.04).abs() < 1e-3).all() and (off < 1e-3).all())
+        note = (f", stacked cubes at z {top[:, 2].min().item():.5f}-"
+                f"{top[:, 2].max().item():.5f} (first cube "
+                f"{s.body_pos[n:2 * n, 0, 2].min().item():.5f}-"
+                f"{s.body_pos[n:2 * n, 0, 2].max().item():.5f})")
+    say(f"phase 12 main path: {task} (ee), {GRIPPER_STEPS} batched_step at "
+        f"B={B}, K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, tau_ext on "
+        f"the fingers of the gripped envs at the first substep "
+        f"{tau0[:n, 7:9].abs().min().item():.3f}-"
+        f"{tau0[:n, 7:9].abs().max().item():.3f} N, fingers moved by "
+        f"{fingers.min().item():.5f}+ m, gripped cubes moved by "
+        f"{moved[:n].min().item():.4f}-{moved[:n].max().item():.4f} m{note}, "
+        f"{int(untouched.sum())} untouched at z "
+        f"{s.body_pos[untouched, 0, 2].min().item():.5f}-"
+        f"{s.body_pos[untouched, 0, 2].max().item():.5f} (rest {rest}), "
+        f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 12 checks of {task} at B={B} failed: {checks}")
+
+    cmp = copy.copy(phys)
+    cmp.motor = twin
+    t = time.perf_counter()
+    (out_k, out_p), err, plain_ms = hold_step_routes(
+        cmp, s_in, lambda a, b, idx: gripper_diff(env, a, b, idx),
+        f"phase 12 {task} B={B}", dev, card)
+    if env.task.scene.nb == 1:
+        gap = (env._step_post(out_k)[1]["observation"][:N_FORCED]
+               - env._step_post(out_p)[1]["observation"][:N_FORCED]).abs()
+        say(f"phase 12 {task} B={B}: the gripped envs' largest observation "
+            f"gap between the routes (ties included) "
+            f"{gap[:, -6:].max().item():.3e} on the object's velocities "
+            f"(held at {ATOL_GRIP_VEL}), {gap[:, :-6].max().item():.3e} on "
+            f"the other entries (held at {ATOL_OBS})")
+    say(f"phase 12 {task} B={B}: holding the routes took "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    step_ms = time_contact(env, s, acts[GRIPPER_STEPS:], task, card,
+                           f", the plain route {plain_ms:.1f} ms for the "
+                           f"physics of one step", tag="phase 12",
+                           warm_up=False, profile=profile)
+    say(f"phase 12 {task} B={B}: the step's timing and profile took "
+        f"{time.perf_counter() - t:.1f} s")
+    return counts, err, step_ms
+
+
+def drive_gripper_training(CD, dev, card, run_root):
+    """Phase 12, PickAndPlace training: Trainer.learn under PNP_TRAIN, cut
+    to one collect rollout and its burst, K1's counts set to 0 as the env
+    is made.  Checks: 21 K1 launches per env step, the burst ran, losses
+    finite, the buffer on the card.  Returns the K1 launches of the run."""
+    from panda_gym_tpu_torch.envs.panda_tasks import make_core
+    from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
+
+    n_envs, horizon = PNP_TRAIN["n_envs"], PNP_TRAIN["horizon"]
+    steps = n_envs * horizon
+    cfg = TrainConfig(
+        n_envs=n_envs, stages=["pickandplace"], max_ep_steps=[horizon],
+        max_timesteps=steps, learning_starts=steps, eval_freq=10 * steps,
+        ee_error_thresholds=[0.05], success_thresholds=[2.0],
+        benchmark_eval_scenes=[], control_type="ee")
+    cfg.hyperparams = Hyperparameters("TQC")
+    hp = cfg.hyperparams
+    if (hp.policy_kwargs["net_arch"] != PNP_TRAIN["net_arch"]
+            or hp.n_quantiles != PNP_TRAIN["n_quantiles"]):
+        fail(f"the TQC preset is not tqc_pickandplace's: {hp}")
+    trainer, core, seconds = run_trainer(
+        cfg, dev, run_root, CD, build=lambda sc: make_core(sc),
+        name="phase12")
+    motor = core.physics_step_batched.motor
+    counts = dict(motor.kernel_launches)
+    rows, burst, _ = rollout_rows(trainer)
+    env_steps = horizon * len(rows)
+    buf = trainer.buffer
+    metrics = [v for r in rows for k, v in r.items()
+               if k in ("critic_loss", "actor_loss", "alpha")]
+    checks = {
+        f"K1: {K1_PER_CONTACT_STEP} launches per env step, all on the "
+        f"one-env-per-thread kernel":
+            counts == {CD.LANES: 0,
+                       CD.THREAD: K1_PER_CONTACT_STEP * env_steps},
+        "a collect rollout and its burst": len(burst) >= 1
+        and trainer.ts.step > 0,
+        "losses and alpha finite": bool(metrics) and all(
+            np.isfinite(v) for v in metrics),
+        "buffer on cuda": all(getattr(buf, k).device.type == "cuda"
+                              for k in ("obs", "achieved", "desired",
+                                        "action", "aux")),
+        "obs of PickAndPlace": buf.obs.shape[-1] == 19,
+    }
+    say(f"phase 12 main path: Trainer.learn on pickandplace at n_envs="
+        f"{n_envs}, horizon {horizon}, {len(rows)} rollout, {env_steps} env "
+        f"steps, K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+        f"{trainer.ts.step} updates, checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 12 PickAndPlace training checks failed: {checks}")
+    r = rows[0]
+    say(f"phase 12 PickAndPlace collect env step at B={n_envs}: "
+        f"{r['t_collect'] * 1e3 / horizon:.1f} ms; the burst of "
+        f"{trainer.ts.step} updates {r['t_update']:.2f} s; training "
+        f"{trainer.timesteps} env steps in {seconds:.2f} s | {card}")
+    return counts[CD.THREAD]
+
+
+def phase12(make_core, _hi_prec, CD, rng, dev, card):
+    """Phase 12; returns what the kernels line needs."""
+    t0 = time.perf_counter()
+    mark = lambda what: say(  # noqa: E731
+        f"phase 12 {what} at {time.perf_counter() - t0:.1f} s")
+    models = chain_models()
+    cob_err = check_mycobot_k1(CD, models["mycobot"], rng, dev)
+    grip_err = check_gripper_k1(CD, models["panda9"], rng, dev)
+    mark("K1 checks done")
+    cob = {}
+    for B, n_steps in MYCOBOT_MAIN:
+        counts, e, _, _ = drive(make_core, _hi_prec, CD, B, n_steps, dev,
+                                tag="phase 12", task="mycobotreach")
+        if counts != {CD.LANES: 0, CD.THREAD: n_steps}:
+            fail(f"phase 12 MyCobotReach K1 launches at B={B} were {counts}")
+        cob[B] = (counts[CD.THREAD], max(e, cob_err))
+    for B, _ in MYCOBOT_MAIN:
+        env = make_core("mycobotreach")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        states, _ = env.batched_reset(B, gen)
+        acts = [torch.rand(B, 6, generator=gen, device=dev) * 2.0 - 1.0
+                for _ in range(N_TIMED + 1)]
+        cob[B] += (time_contact(env, states, acts, "mycobotreach", card,
+                                tag="phase 12", both_readers=True),)
+    mark("MyCobotReach done")
+    grip = {}
+    for i, (task, B) in enumerate(GRIPPER):
+        # one profile per task
+        first = all(t != task for t, _ in GRIPPER[:i])
+        counts, e, step_ms = drive_gripper(make_core, _hi_prec, CD, task, B,
+                                           dev, card, profile=first)
+        grip[task, B] = (counts[CD.THREAD], max(e, grip_err), step_ms)
+        mark(f"{task} at B={B} done")
+    with tempfile.TemporaryDirectory() as run_root:
+        train_launches = drive_gripper_training(CD, dev, card, run_root)
+    mark("training done")
+    times = chain_k1_times(CD, models, rng, dev, card)
+    say(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
+    return cob, grip, train_launches, times
 
 
 def main():
@@ -2264,6 +2771,13 @@ def main():
         say(f"phase 2 occupancy, {KERNEL_NAMES[lanes]} kernel: {occ['regs']} "
             f"registers/thread, {occ['local_bytes']} bytes local "
             f"memory/thread, {occ['blocks_per_sm']} blocks of "
+            f"{occ['threads_per_block']} threads ({occ['warps_per_sm']} "
+            f"warps) resident per SM")
+    for chain, name in ((1, "MyCobot (6 dofs)"), (2, "the 9-dof Panda")):
+        occ = CD.occupancy(dev.index, CD.THREAD, chain)
+        say(f"phase 2 occupancy, one-env-per-thread kernel of {name}: "
+            f"{occ['regs']} registers/thread, {occ['local_bytes']} bytes "
+            f"local memory/thread, {occ['blocks_per_sm']} blocks of "
             f"{occ['threads_per_block']} threads ({occ['warps_per_sm']} "
             f"warps) resident per SM")
     say(f"phase 2 dispatch: the lane-group kernel up to "
@@ -2374,6 +2888,10 @@ def main():
         push_train_launches = drive_push_training(CD, dev, card, run_root)
     sub_times, sub_ops = k1_substep_times(CD, model, rng, dev, card)
 
+    # --------------------------------------------------------------- 12
+    cob, grip, pnp_train_launches, chain_times = phase12(
+        make_core, _hi_prec, CD, rng, dev, card)
+
     def bound_by(ops, bytes_per_env=K1_BYTES):
         return ("operations" if float(ops) / PEAK_FP32_OPS
                 > bytes_per_env / PEAK_BYTES else "bytes")
@@ -2444,6 +2962,25 @@ def main():
         f"timed with tau_ext), {KERNEL_NAMES[CD.LANES]} (B={B_MAIN})",
         warm_launches, warm_err,
         *sub_times[B_MAIN], sub_ops, K1_SUBSTEP_BYTES))
+    c_times, c_ops, c_bytes = chain_times["mycobot"]
+    for B, (n, e, _) in cob.items():
+        ms, p_ms, bound = c_times[B]
+        rows.append(k1_row(
+            f"K1 motor_steps_thread_kernel<MyCobotChain>, 20 warm substeps "
+            f"on MyCobotReach (robot-only, one launch per step) (B={B})", n,
+            e, ms, p_ms, bound, c_ops, c_bytes))
+    g_times, g_ops, g_bytes = chain_times["panda9"]
+    for (task, B), (n, e, _) in grip.items():
+        rows.append(k1_row(
+            f"K1 motor_steps_thread_kernel<GripperPandaChain>, one warm "
+            f"substep with tau_ext on the {task} contact step (a seed and 20 "
+            f"substeps per step) (B={B})", n, e, *g_times[B], g_ops,
+            g_bytes))
+    rows.append(k1_row(
+        f"K1 motor_steps_thread_kernel<GripperPandaChain>, one warm substep "
+        f"with tau_ext on the PickAndPlace training path (Trainer at n_envs "
+        f"{N_ENVS}) (B={N_ENVS})", pnp_train_launches,
+        grip["pickandplace", N_ENVS][1], *g_times[N_ENVS], g_ops, g_bytes))
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""Panda robot layer: action pipeline, robot observations, reset
-(port of panda_gym_tpu/envs/robot.py:27-217).
+"""Robot layer: action pipeline, robot observations, reset (port of
+panda_gym_tpu/envs/robot.py: PandaRobot, and MyCobotRobot, the 6-dof arm
+without a gripper).
 
 Every method takes and returns batched tensors (the env batch leading), so
 there is no vmap.  Control modes "ee" (end-effector displacement, resolved
@@ -17,6 +18,9 @@ import numpy as np
 import torch
 
 from panda_gym_tpu_torch.models import panda_constants as pc
+from panda_gym_tpu_torch.models.mycobot import EE_SITE as MC_EE_SITE
+from panda_gym_tpu_torch.models.mycobot import NEUTRAL as MC_NEUTRAL
+from panda_gym_tpu_torch.models.mycobot import make_mycobot_model
 from panda_gym_tpu_torch.models.panda import EE_SITE, make_panda_model
 from panda_gym_tpu_torch.ops import dynamics as D
 from panda_gym_tpu_torch.ops import kinematics as K
@@ -54,14 +58,19 @@ class PandaRobot:
         self.ndof = self.model.ndof
         self.n_arm = 7
         self.ee_site = EE_SITE
-        # action dim: 3 (ee) or n_arm (joints) + 1 finger channel if not
-        # blocked (panda.py:47-48)
+        self._init_common(np.asarray(config.neutral, np.float32))
+
+    def _init_common(self, neutral_arm):
+        """Shared tail of robot construction: action dim, 3 (ee) or n_arm
+        (joints) + 1 finger channel if not blocked (panda.py:47-48), the
+        control mode, the neutral pose padded to ndof."""
+        config = self.config
         n = 3 if config.control_type == "ee" else self.n_arm
         self.action_dim = n + (0 if config.block_gripper else 1)
         self.ctrl_mode = (D.CTRL_VELOCITY if config.control_type == "jsd"
                           else D.CTRL_POSITION)
         self.neutral = np.zeros(self.ndof, dtype=np.float32)
-        self.neutral[:self.n_arm] = np.asarray(config.neutral, np.float32)
+        self.neutral[:self.n_arm] = neutral_arm
 
     # ------------------------------------------------------------------ obs
     def ee_position(self, fk):
@@ -176,3 +185,21 @@ class PandaRobot:
         q = torch.as_tensor(self.neutral, device=device).expand(
             batch, self.ndof).clone()
         return q, torch.zeros_like(q)
+
+
+class MyCobotRobot(PandaRobot):
+    """6-dof MyCobot (reference envs/robots/mycobot.py): the Panda's action
+    pipeline without a gripper; the joint forces are the reference's zeros
+    (mycobot.py:56), so the motors exert no torque."""
+
+    def __init__(self, config: PandaConfig):
+        self.config = config
+        self.gripper = "none"
+        self.model = make_mycobot_model(base_position=config.base_position)
+        self.ndof = self.model.ndof
+        self.n_arm = 6
+        self.ee_site = MC_EE_SITE
+        self._init_common(np.asarray(MC_NEUTRAL, np.float32))
+
+    def fingers_width(self, state: EnvState):
+        return torch.zeros_like(state.q[:, 0])

@@ -1,5 +1,7 @@
-// K1: batched substepped motor dynamics of a 7-dof serial revolute chain
-// (the Panda of the Reach family) on Hopper.
+// K1: batched substepped motor dynamics of a kinematic chain on Hopper: the
+// welded 7-dof Panda (Reach, ReachAO, Push, Slide), MyCobot's 6 serial
+// revolute dofs (MyCobotReach) and the 9-dof Panda whose two prismatic
+// fingers both hang from link 6 (PickAndPlace, Stack, Flip).
 //
 // Replaces panda_gym_tpu/ops/pallas_dynamics.py::make_pallas_motor_steps
 // (the only pl.pallas_call of the JAX package).  Computes what
@@ -18,17 +20,17 @@
 // PANDA_LCP_WARM=1, which launch once per substep): a seed launch runs only
 // the cold pre-solve and writes the active set; each substep launch then
 // reads the set carried from the launch before, refines it warm and writes
-// it back.  A contact torque tau_ext (B, 7) is added to the right-hand side
+// it back.  A contact torque tau_ext (B, ndof) is added to the right-hand side
 // of the free-velocity solve, tau_ext - bias, as scalarized.py adds it; the
 // seed ignores it, as the reference's seed does.  With null pointers for
 // these (the Reach step, and the cold collision step) every output is what
 // it was without them, bit for bit.
 //
-// What bounds it: per env it reads 3x7 and writes 2x7 floats (140 B) and
-// does ~82k fp32 operations per policy step, so it is bound by operations,
-// not bytes.  Those operations are one long chain per env.  Two kernels
-// compute it, and the wrapper (ops/cuda_dynamics.py) picks one from B and
-// what the card reports:
+// What bounds it: per env of the welded Panda it reads 3x7 and writes 2x7
+// floats (140 B) and does ~82k fp32 operations per policy step, so it is
+// bound by operations, not bytes.  Those operations are one long chain per
+// env.  Two kernels compute it for the welded Panda, and the wrapper
+// (ops/cuda_dynamics.py) picks one from B and what the card reports:
 //
 // motor_steps_lanes_kernel, up to one wave of its grid (every block
 // resident at once: 132 SMs x 2 blocks x 16 envs = 4,224 envs on the H100).
@@ -69,7 +71,10 @@
 //   code path for different roles, a role's missing term is an exact zero.
 //
 // motor_steps_thread_kernel, past that wave: one env per thread, the whole
-// chain in registers.  A warp of lane groups serves 4 envs where one of
+// chain in registers.  It is a template on the chain (ndof, parents, joint
+// types, known at compile time), built for each of the three chains; the
+// lane groups own one dof per lane and stay the welded Panda's, so MyCobot
+// and the 9-dof Panda run this kernel at every B.  A warp of lane groups serves 4 envs where one of
 // threads serves 32, and the work that every lane repeats is issued once
 // per 4 envs; once the card is full time follows the instructions issued
 // per env, about 1,000 per substep in the lane groups against about 240
@@ -110,42 +115,75 @@
 
 namespace {
 
-constexpr int N = 7;
+constexpr int N = 7;                      // the lane-group kernel's chain
 constexpr int LANES = 8;                  // lanes per env
 constexpr int THREADS = 128;              // threads per block
 constexpr int GROUPS = THREADS / LANES;   // envs per block
 
-// Model tables, all float32, as packed by ops/cuda_dynamics.py (same order).
-struct Model {
-  float XR[N][9];      // joint frame rotation in parent body frame, row-major
-  float Xp[N][3];      // joint frame origin in parent body frame
-  float axis[N][3];    // joint axis
-  float mass[N];
-  float com[N][3];
-  float inertia[N][9]; // about the body origin, row-major
-  float q_lo[N];
-  float q_hi[N];
-  float effort[N];
-  float vel_limit[N];
+// The chains K1 is built for: the number of dofs, each dof's parent (-1 for
+// the base; a parent has a lower index, as ChainModel orders them) and
+// whether its joint is prismatic (else revolute); ``serial`` when every
+// dof's parent is the one before it and every joint is revolute.  The wrapper names them by their index
+// in this list (chain id 0, 1, 2).
+struct PandaChain {         // the welded Panda: 7 serial revolute dofs
+  static constexpr int N = 7;
+  static constexpr bool serial = true;
+  static constexpr __host__ __device__ int parent(int d) { return d - 1; }
+  static constexpr __host__ __device__ bool prismatic(int) { return false; }
+};
+struct MyCobotChain {       // MyCobot: 6 serial revolute dofs
+  static constexpr int N = 6;
+  static constexpr bool serial = true;
+  static constexpr __host__ __device__ int parent(int d) { return d - 1; }
+  static constexpr __host__ __device__ bool prismatic(int) { return false; }
+};
+struct GripperPandaChain {  // the Panda with its fingers: 7 revolute arm
+  static constexpr int N = 9;  // dofs, prismatic fingers 7 and 8 on link 6
+  static constexpr bool serial = false;
+  static constexpr __host__ __device__ int parent(int d) { return d == 8 ? 6 : d - 1; }
+  static constexpr __host__ __device__ bool prismatic(int d) { return d >= 7; }
 };
 
-struct Args {
-  Model m;
-  float cap[N];        // effort * dt, folded in double as the plain version does
-  float comp_m[N];     // CRBA: mass of the composite body of link d (q-independent)
-  float comp_w[N];     // CRBA: 1 / max(comp_m[d-1], 1e-12), the CoM weight at link d
-  float vgain;         // position_gain / dt, folded in double
+// Model tables of an ND-dof chain, all float32, as packed by
+// ops/cuda_dynamics.py (same order).
+template <int ND>
+struct ModelT {
+  float XR[ND][9];      // joint frame rotation in parent body frame, row-major
+  float Xp[ND][3];      // joint frame origin in parent body frame
+  float axis[ND][3];    // joint axis
+  float mass[ND];
+  float com[ND][3];
+  float inertia[ND][9]; // about the body origin, row-major
+  float q_lo[ND];
+  float q_hi[ND];
+  float effort[ND];
+  float vel_limit[ND];
+};
+using Model = ModelT<N>;
+
+template <int ND>
+struct ArgsT {
+  ModelT<ND> m;
+  float cap[ND];        // effort * dt, folded in double as the plain version does
+  float comp_m[ND];     // CRBA: mass of the composite body of link d (q-independent)
+  float comp_w[ND];     // CRBA: 1 / max(comp_mp[d] + comp_m[d], 1e-12), the CoM
+                        // weight as link d joins its parent
+  float vgain;          // position_gain / dt, folded in double
   float dt;
   int n_substeps;
-  int ctrl_mode;       // 0 position, 1 velocity
+  int ctrl_mode;        // 0 position, 1 velocity
   int cold_iters;
   int warm_iters;
-  int warm;            // 1: seed once, refine warm; 0: every substep cold
-  int seed;            // 1: only the cold pre-solve, which writes the set
+  int warm;             // 1: seed once, refine warm; 0: every substep cold
+  int seed;             // 1: only the cold pre-solve, which writes the set
+  float comp_mp[ND];    // CRBA: mass of the parent's composite as link d joins it
+                        // (last, so that the lane-group kernel's block keeps
+                        // the layout it had before the chains)
 };
+using Args = ArgsT<N>;
 
-// The optional per-env inputs and outputs of one-substep launches, (B, 7)
-// each; null where not given.
+// The optional per-env inputs and outputs of one-substep launches,
+// (B, ndof) each; null where not given.
 struct Carry {
   const float* tau;            // contact torque, added to -bias
   const unsigned char* sat_in; // carried active set (0/1) and its signs
@@ -258,15 +296,16 @@ __device__ __forceinline__ unsigned char pick_sat(int i, const bool (&a)[N]) {
 
 // Every lane (or the env's one thread) reads the env's whole contact torque
 // and carried active set, where given.
-__device__ __forceinline__ void load_carry(const Carry& c, long long off, float (&tau)[N],
-                                           bool (&sat)[N], float (&sign)[N]) {
+template <int ND>
+__device__ __forceinline__ void load_carry(const Carry& c, long long off, float (&tau)[ND],
+                                           bool (&sat)[ND], float (&sign)[ND]) {
   if (c.tau != nullptr) {
 #pragma unroll
-    for (int d = 0; d < N; ++d) tau[d] = c.tau[off + d];
+    for (int d = 0; d < ND; ++d) tau[d] = c.tau[off + d];
   }
   if (c.sat_in != nullptr) {
 #pragma unroll
-    for (int d = 0; d < N; ++d) {
+    for (int d = 0; d < ND; ++d) {
       sat[d] = c.sat_in[off + d] != 0;
       sign[d] = c.sign_in[off + d];
     }
@@ -443,10 +482,11 @@ __device__ __forceinline__ void bias_and_mass(const Args& a, const Lane& me, Scr
 
 // Index-unrolled Cholesky factor of A (scalarized.py:cholesky_factor):
 // lower L and the reciprocals of its diagonal.
-__device__ __forceinline__ void cholesky_factor(const float (&A)[N][N], float (&L)[N][N],
-                                                float (&inv)[N]) {
+template <int ND>
+__device__ __forceinline__ void cholesky_factor(const float (&A)[ND][ND], float (&L)[ND][ND],
+                                                float (&inv)[ND]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int i = 0; i < ND; ++i) {
 #pragma unroll
     for (int j = 0; j <= i; ++j) {
       float s = A[i][j];
@@ -464,40 +504,43 @@ __device__ __forceinline__ void cholesky_factor(const float (&A)[N][N], float (&
 
 // Forward and back substitution with a factor (scalarized.py:
 // cholesky_substitute).
-__device__ __forceinline__ void cholesky_subst(const float (&L)[N][N], const float (&inv)[N],
-                                               const float (&b)[N], float (&x)[N]) {
-  float y[N];
+template <int ND>
+__device__ __forceinline__ void cholesky_subst(const float (&L)[ND][ND], const float (&inv)[ND],
+                                               const float (&b)[ND], float (&x)[ND]) {
+  float y[ND];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int i = 0; i < ND; ++i) {
     float s = b[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
     y[i] = s * inv[i];
   }
 #pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
+  for (int i = ND - 1; i >= 0; --i) {
     float s = y[i];
 #pragma unroll
-    for (int k = i + 1; k < N; ++k) s = s - L[k][i] * x[k];
+    for (int k = i + 1; k < ND; ++k) s = s - L[k][i] * x[k];
     x[i] = s * inv[i];
   }
 }
 
 // The active-set matrix of the motor LCP: M on the saturated rows and
 // columns, the identity elsewhere.
-__device__ __forceinline__ void active_matrix(const bool (&sat)[N], const float (&M)[N][N],
-                                              float (&A)[N][N]) {
+template <int ND>
+__device__ __forceinline__ void active_matrix(const bool (&sat)[ND], const float (&M)[ND][ND],
+                                              float (&A)[ND][ND]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+  for (int i = 0; i < ND; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) A[i][j] = (sat[i] && sat[j]) ? M[i][j] : (i == j ? 1.0f : 0.0f);
+    for (int j = 0; j < ND; ++j) A[i][j] = (sat[i] && sat[j]) ? M[i][j] : (i == j ? 1.0f : 0.0f);
 }
 
 // Row i of M v, for the lane that owns row i (matvec order of ops).
-__device__ __forceinline__ float row_dot(const float (&Mi)[N], const float (&v)[N]) {
+template <int ND>
+__device__ __forceinline__ float row_dot(const float (&Mi)[ND], const float (&v)[ND]) {
   float s = Mi[0] * v[0];
 #pragma unroll
-  for (int j = 1; j < N; ++j) s = s + Mi[j] * v[j];
+  for (int j = 1; j < ND; ++j) s = s + Mi[j] * v[j];
   return s;
 }
 __device__ __forceinline__ void load7(const float* p, float (&v)[N]) {
@@ -718,8 +761,11 @@ motor_steps_lanes_kernel(const float* __restrict__ q_in, const float* __restrict
 
 // ---------------------------------------------------------------------------
 // One env per thread (the kernel for batches past one wave of the lane
-// groups).  The whole chain runs in registers; the model tables are read
-// from the constant bank at addresses uniform to the warp.
+// groups, and for every batch of the chains other than the welded Panda).
+// The whole chain runs in registers; the model tables are read from the
+// constant bank at addresses uniform to the warp.  A template on the chain C:
+// its parents and joint types are compile-time constants, so every loop
+// over the links unrolls into straight code on fixed registers.
 
 // skew(v) skew(v)^T
 __device__ __forceinline__ M3 skew_sq(V3 v) {
@@ -735,131 +781,235 @@ __device__ __forceinline__ M3 mT(const M3& A) {
   return r;
 }
 
-// Bias force C(q, qd) qd + G(q) by RNEA with qdd = 0 (scalarized.py:rnea).
-__device__ __forceinline__ void rnea_bias(const Model& m, const M3 (&R)[N], const float (&qd)[N],
-                                          float (&tau)[N]) {
-  V3 fn[N], ff[N];
-  V3 om_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f};
-  V3 aom_p = {0.f, 0.f, 0.f}, av_p = {0.f, 0.f, 9.81f};  // base accel = -g
+// Child-body frame (R, p) in parent coords of every joint at q
+// (scalarized.py:_joint_X): a revolute joint turns its frame about the axis;
+// a prismatic one keeps the frame and slides its origin by R (q axis).  P
+// holds the origins of the prismatic joints only; joint_p reads a revolute
+// joint's fixed origin from the constant bank where it is used, so that the
+// revolute chains keep no origin in registers.
+template <class C>
+__device__ __forceinline__ void joint_frames(const ModelT<C::N>& m, const float (&q)[C::N],
+                                             M3 (&R)[C::N], V3 (&P)[C::N]) {
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
-    const V3 p = load3(m.Xp[d]);
-    V3 om = mtv(R[d], om_p);
-    V3 v = mtv(R[d], vadd(v_p, vcross(om_p, p)));
-    V3 aom = mtv(R[d], aom_p);
-    V3 av = mtv(R[d], vadd(av_p, vcross(aom_p, p)));
-    const V3 vj = vscale(qd[d], load3(m.axis[d]));
-    om = vadd(om, vj);
-    aom = vadd(aom, vcross(om, vj));
-    av = vadd(av, vcross(v, vj));
-    const float ms = m.mass[d];
-    const V3 c = load3(m.com[d]);
-    const M3 I = load9(m.inertia[d]);
-    V3 hn, hf, n, f;
-    inertia_mul(ms, c, I, om, v, hn, hf);
-    inertia_mul(ms, c, I, aom, av, n, f);
-    fn[d] = vadd(n, vadd(vcross(om, hn), vcross(v, hf)));
-    ff[d] = vadd(f, vcross(om, hf));
-    om_p = om; v_p = v; aom_p = aom; av_p = av;
+  for (int d = 0; d < C::N; ++d) {
+    if (C::prismatic(d)) {
+      R[d] = load9(m.XR[d]);
+      P[d] = vadd(load3(m.Xp[d]), mv(R[d], vscale(q[d], load3(m.axis[d]))));
+    } else {
+      R[d] = joint_R(load9(m.XR[d]), load3(m.axis[d]), q[d]);
+      P[d] = V3{0.f, 0.f, 0.f};
+    }
+  }
+}
+template <class C>
+__device__ __forceinline__ V3 joint_p(const ModelT<C::N>& m, const V3 (&P)[C::N], int d) {
+  return C::prismatic(d) ? P[d] : load3(m.Xp[d]);
+}
+
+// Bias force C(q, qd) qd + G(q) by RNEA with qdd = 0 (scalarized.py:rnea).
+// A prismatic joint's velocity enters v, not om, and its torque is the
+// force along the axis; each link's force joins its parent's, the children
+// of a branch from the last dof down.  A serial revolute chain keeps the
+// form that carries only the previous link's motion, which compiles to
+// fewer spilled registers.
+template <class C>
+__device__ __forceinline__ void rnea_bias(const ModelT<C::N>& m, const M3 (&R)[C::N],
+                                          const V3 (&P)[C::N], const float (&qd)[C::N],
+                                          float (&tau)[C::N]) {
+  constexpr int ND = C::N;
+  V3 fn[ND], ff[ND];
+  if constexpr (C::serial) {
+    V3 om_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f};
+    V3 aom_p = {0.f, 0.f, 0.f}, av_p = {0.f, 0.f, 9.81f};  // base accel = -g
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const V3 p = load3(m.Xp[d]);
+      V3 om = mtv(R[d], om_p);
+      V3 vv = mtv(R[d], vadd(v_p, vcross(om_p, p)));
+      V3 aom = mtv(R[d], aom_p);
+      V3 av = mtv(R[d], vadd(av_p, vcross(aom_p, p)));
+      const V3 vj = vscale(qd[d], load3(m.axis[d]));
+      om = vadd(om, vj);
+      aom = vadd(aom, vcross(om, vj));
+      av = vadd(av, vcross(vv, vj));
+      const float ms = m.mass[d];
+      const V3 c = load3(m.com[d]);
+      const M3 I = load9(m.inertia[d]);
+      V3 hn, hf, n, f;
+      inertia_mul(ms, c, I, om, vv, hn, hf);
+      inertia_mul(ms, c, I, aom, av, n, f);
+      fn[d] = vadd(n, vadd(vcross(om, hn), vcross(vv, hf)));
+      ff[d] = vadd(f, vcross(om, hf));
+      om_p = om; v_p = vv; aom_p = aom; av_p = av;
+    }
+  } else {
+    V3 om[ND], v[ND], aom[ND], av[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const int pd = C::parent(d);
+      const int pi = pd < 0 ? 0 : pd;
+      const V3 zero = {0.f, 0.f, 0.f};
+      const V3 om_p = pd < 0 ? zero : om[pi], v_p = pd < 0 ? zero : v[pi];
+      const V3 aom_p = pd < 0 ? zero : aom[pi];
+      const V3 av_p = pd < 0 ? V3{0.f, 0.f, 9.81f} : av[pi];  // base accel = -g
+      const V3 p = joint_p<C>(m, P, d);
+      V3 o = mtv(R[d], om_p);
+      V3 vv = mtv(R[d], vadd(v_p, vcross(om_p, p)));
+      V3 ao = mtv(R[d], aom_p);
+      V3 a = mtv(R[d], vadd(av_p, vcross(aom_p, p)));
+      const V3 vj = vscale(qd[d], load3(m.axis[d]));
+      if (C::prismatic(d)) {
+        vv = vadd(vv, vj);
+        a = vadd(a, vcross(o, vj));
+      } else {
+        o = vadd(o, vj);
+        ao = vadd(ao, vcross(o, vj));
+        a = vadd(a, vcross(vv, vj));
+      }
+      const float ms = m.mass[d];
+      const V3 c = load3(m.com[d]);
+      const M3 I = load9(m.inertia[d]);
+      V3 hn, hf, n, f;
+      inertia_mul(ms, c, I, o, vv, hn, hf);
+      inertia_mul(ms, c, I, ao, a, n, f);
+      fn[d] = vadd(n, vadd(vcross(o, hn), vcross(vv, hf)));
+      ff[d] = vadd(f, vcross(o, hf));
+      om[d] = o; v[d] = vv; aom[d] = ao; av[d] = a;
+    }
   }
 #pragma unroll
-  for (int d = N - 1; d >= 0; --d) {
-    tau[d] = vdot(load3(m.axis[d]), fn[d]);
-    if (d > 0) {
+  for (int d = ND - 1; d >= 0; --d) {
+    tau[d] = vdot(load3(m.axis[d]), C::prismatic(d) ? ff[d] : fn[d]);
+    const int pd = C::parent(d);
+    if (pd >= 0) {
       V3 n = fn[d], f = ff[d];
-      force_to_parent(R[d], load3(m.Xp[d]), n, f);
-      fn[d - 1] = vadd(fn[d - 1], n);
-      ff[d - 1] = vadd(ff[d - 1], f);
+      force_to_parent(R[d], joint_p<C>(m, P, d), n, f);
+      fn[pd] = vadd(fn[pd], n);
+      ff[pd] = vadd(ff[pd], f);
     }
   }
 }
 
 // Joint-space mass matrix by CRBA (scalarized.py:crba); fills the full
 // matrix.  The composite masses and CoM weights come folded from the host.
-__device__ __forceinline__ void crba(const Args& a, const M3 (&R)[N], float (&M)[N][N]) {
-  const Model& m = a.m;
-  V3 cc[N];
-  M3 Ic[N];
+// Each link's composite joins its parent's from the last dof down; each
+// column walks from its dof to the base through the parents, so the entries
+// of two dofs that are not each other's ancestors stay exact zeros (a
+// serial chain writes every entry).
+template <class C>
+__device__ __forceinline__ void crba(const ArgsT<C::N>& a, const M3 (&R)[C::N],
+                                     const V3 (&P)[C::N], float (&M)[C::N][C::N]) {
+  constexpr int ND = C::N;
+  const ModelT<ND>& m = a.m;
+  V3 cc[ND];
+  M3 Ic[ND];
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
+  for (int d = 0; d < ND; ++d) {
     cc[d] = load3(m.com[d]);
     Ic[d] = load9(m.inertia[d]);
   }
 #pragma unroll
-  for (int d = N - 1; d > 0; --d) {
+  for (int d = ND - 1; d >= 0; --d) {
+    const int pd = C::parent(d);
+    if (pd < 0) continue;
     // child inertia in parent coords (scalarized.py:_inertia_to_parent)
     const float m_c = a.comp_m[d];
-    const V3 c_p = vadd(mv(R[d], cc[d]), load3(m.Xp[d]));
+    const V3 c_p = vadd(mv(R[d], cc[d]), joint_p<C>(m, P, d));
     const M3 sk = skew_sq(cc[d]);
     M3 I_com;
 #pragma unroll
     for (int i = 0; i < 9; ++i) I_com.a[i] = Ic[d].a[i] - m_c * sk.a[i];
     const M3 I_com_p = mm(R[d], mm(I_com, mT(R[d])));
     const M3 skp = skew_sq(c_p);
-    const float m_p = m.mass[d - 1];
-    cc[d - 1] = vscale(a.comp_w[d], vadd(vscale(m_p, cc[d - 1]), vscale(m_c, c_p)));
+    // a serial chain's parent holds only its own mass when its one child
+    // joins it
+    float m_p;
+    if constexpr (C::serial) m_p = m.mass[pd];
+    else m_p = a.comp_mp[d];
+    cc[pd] = vscale(a.comp_w[d], vadd(vscale(m_p, cc[pd]), vscale(m_c, c_p)));
 #pragma unroll
-    for (int i = 0; i < 9; ++i) Ic[d - 1].a[i] = Ic[d - 1].a[i] + (I_com_p.a[i] + m_c * skp.a[i]);
+    for (int i = 0; i < 9; ++i) Ic[pd].a[i] = Ic[pd].a[i] + (I_com_p.a[i] + m_c * skp.a[i]);
+  }
+  if constexpr (!C::serial) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int j = 0; j < ND; ++j) M[i][j] = 0.0f;
   }
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
+  for (int d = 0; d < ND; ++d) {
     const V3 ax = load3(m.axis[d]);
+    const V3 zero = {0.f, 0.f, 0.f};
     V3 Fn, Ff;
-    inertia_mul(a.comp_m[d], cc[d], Ic[d], ax, V3{0.f, 0.f, 0.f}, Fn, Ff);
-    M[d][d] = vdot(ax, Fn);
+    if (C::prismatic(d)) {
+      inertia_mul(a.comp_m[d], cc[d], Ic[d], zero, ax, Fn, Ff);
+      M[d][d] = vdot(ax, Ff);
+    } else {
+      inertia_mul(a.comp_m[d], cc[d], Ic[d], ax, zero, Fn, Ff);
+      M[d][d] = vdot(ax, Fn);
+    }
+    int j = d;
 #pragma unroll
-    for (int j = d; j > 0; --j) {
-      force_to_parent(R[j], load3(m.Xp[j]), Fn, Ff);
-      const float Mdj = vdot(load3(m.axis[j - 1]), Fn);
-      M[d][j - 1] = Mdj;
-      M[j - 1][d] = Mdj;
+    for (int h = 0; h < ND; ++h) {
+      const int pj = C::parent(j);
+      if (pj < 0) break;
+      force_to_parent(R[j], joint_p<C>(m, P, j), Fn, Ff);
+      const float Mdj = vdot(load3(m.axis[pj]), C::prismatic(pj) ? Ff : Fn);
+      M[d][pj] = Mdj;
+      M[pj][d] = Mdj;
+      j = pj;
     }
   }
 }
 
-__device__ __forceinline__ void matvec(const float (&M)[N][N], const float (&v)[N], float (&out)[N]) {
+template <int ND>
+__device__ __forceinline__ void matvec(const float (&M)[ND][ND], const float (&v)[ND],
+                                       float (&out)[ND]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = row_dot(M[i], v);
+  for (int i = 0; i < ND; ++i) out[i] = row_dot(M[i], v);
 }
 
 // One substep of one env on one thread (scalarized.py:motor_substep); the
 // same steps as motor_substep above, every one on this thread.
-__device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], float (&qd)[N],
-                                               const float (&tgt)[N], const float (&tau)[N],
-                                               bool has_tau, bool cold, bool seed_only,
-                                               bool (&sat)[N], float (&sign)[N]) {
-  const Model& m = a.m;
-  float v_des[N];
+template <class C>
+__device__ __forceinline__ void thread_substep(const ArgsT<C::N>& a, float (&q)[C::N],
+                                               float (&qd)[C::N], const float (&tgt)[C::N],
+                                               const float (&tau)[C::N], bool has_tau, bool cold,
+                                               bool seed_only, bool (&sat)[C::N],
+                                               float (&sign)[C::N]) {
+  constexpr int ND = C::N;
+  const ModelT<ND>& m = a.m;
+  float v_des[ND];
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
+  for (int d = 0; d < ND; ++d) {
     const float v = a.ctrl_mode == 0 ? a.vgain * (tgt[d] - q[d]) : tgt[d];
     v_des[d] = fminf(fmaxf(v, -m.vel_limit[d]), m.vel_limit[d]);
   }
-  M3 R[N];
-#pragma unroll
-  for (int d = 0; d < N; ++d) R[d] = joint_R(load9(m.XR[d]), load3(m.axis[d]), q[d]);
+  M3 R[ND];
+  V3 P[ND];
+  joint_frames<C>(m, q, R, P);
 
-  float bias[N], M[N][N];
-  rnea_bias(m, R, qd, bias);
-  crba(a, R, M);
+  float bias[ND], M[ND][ND];
+  rnea_bias<C>(m, R, P, qd, bias);
+  crba<C>(a, R, P, M);
 
-  float L[N][N], inv[N], rhs[N], fv[N];
+  float L[ND][ND], inv[ND], rhs[ND], fv[ND];
   cholesky_factor(M, L, inv);
 #pragma unroll
-  for (int i = 0; i < N; ++i) rhs[i] = has_tau ? tau[i] - bias[i] : -bias[i];
+  for (int i = 0; i < ND; ++i) rhs[i] = has_tau ? tau[i] - bias[i] : -bias[i];
   cholesky_subst(L, inv, rhs, fv);
-  float qd_free[N], Mqf[N];
+  float qd_free[ND], Mqf[ND];
 #pragma unroll
-  for (int d = 0; d < N; ++d) qd_free[d] = qd[d] + a.dt * fv[d];
+  for (int d = 0; d < ND; ++d) qd_free[d] = qd[d] + a.dt * fv[d];
   matvec(M, qd_free, Mqf);
 
-  float c[N], x[N];
+  float c[ND], x[ND];
   int n_iters;
   if (cold) {
-    float Mv[N];
+    float Mv[ND];
     matvec(M, v_des, Mv);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < ND; ++i) {
       x[i] = Mv[i] - Mqf[i];
       sat[i] = fabsf(x[i]) > a.cap[i];
       c[i] = fminf(fmaxf(x[i], -a.cap[i]), a.cap[i]);
@@ -867,38 +1017,38 @@ __device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], flo
     n_iters = a.cold_iters;
   } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) c[i] = a.cap[i] * sign[i];
+    for (int i = 0; i < ND; ++i) c[i] = a.cap[i] * sign[i];
     n_iters = a.warm_iters;
   }
 
-  float u[N];
+  float u[ND];
 #pragma unroll
-  for (int i = 0; i < N; ++i) u[i] = v_des[i];
+  for (int i = 0; i < ND; ++i) u[i] = v_des[i];
 #pragma unroll 1
   for (int it = 0; it < n_iters; ++it) {
-    float A[N][N], vf[N], mvf[N], Mu[N];
+    float A[ND][ND], vf[ND], mvf[ND], Mu[ND];
     active_matrix(sat, M, A);
     cholesky_factor(A, L, inv);
 #pragma unroll
-    for (int i = 0; i < N; ++i) vf[i] = sat[i] ? 0.0f : v_des[i];
+    for (int i = 0; i < ND; ++i) vf[i] = sat[i] ? 0.0f : v_des[i];
     matvec(M, vf, mvf);
 #pragma unroll
-    for (int i = 0; i < N; ++i) rhs[i] = sat[i] ? (c[i] + Mqf[i]) - mvf[i] : v_des[i];
+    for (int i = 0; i < ND; ++i) rhs[i] = sat[i] ? (c[i] + Mqf[i]) - mvf[i] : v_des[i];
     cholesky_subst(L, inv, rhs, u);
     matvec(M, u, Mu);
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int i = 0; i < ND; ++i) {
       x[i] = Mu[i] - Mqf[i];
       sat[i] = sat[i] ? ((v_des[i] - u[i]) * c[i] >= 0.0f) : (fabsf(x[i]) > a.cap[i]);
       c[i] = fminf(fmaxf(x[i], -a.cap[i]), a.cap[i]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i) sign[i] = x[i] >= 0.0f ? 1.0f : -1.0f;
+  for (int i = 0; i < ND; ++i) sign[i] = x[i] >= 0.0f ? 1.0f : -1.0f;
   if (seed_only) return;
 
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
+  for (int d = 0; d < ND; ++d) {
     const float q_new = q[d] + a.dt * u[d];
     const float q_cl = fminf(fmaxf(q_new, m.q_lo[d]), m.q_hi[d]);
     qd[d] = q_cl != q_new ? 0.0f : u[d];
@@ -906,81 +1056,71 @@ __device__ __forceinline__ void thread_substep(const Args& a, float (&q)[N], flo
   }
 }
 
+template <class C>
 __global__ void __launch_bounds__(THREADS)
 motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restrict__ qd_in,
                           const float* __restrict__ tgt_in, float* __restrict__ q_out,
-                          float* __restrict__ qd_out, int B, const Args a, const Carry c) {
+                          float* __restrict__ qd_out, int B, const ArgsT<C::N> a,
+                          const Carry c) {
+  constexpr int ND = C::N;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const long long off = static_cast<long long>(b) * N;
-  float q[N], qd[N], tgt[N];
+  const long long off = static_cast<long long>(b) * ND;
+  float q[ND], qd[ND], tgt[ND];
 #pragma unroll
-  for (int d = 0; d < N; ++d) {
+  for (int d = 0; d < ND; ++d) {
     q[d] = q_in[off + d];
     qd[d] = qd_in[off + d];
     tgt[d] = tgt_in[off + d];
   }
-  float tau[N] = {};
-  bool sat[N] = {};
-  float sign[N] = {};
+  float tau[ND] = {};
+  bool sat[ND] = {};
+  float sign[ND] = {};
   load_carry(c, off, tau, sat, sign);
   if (a.seed || (a.warm && c.sat_in == nullptr))
-    thread_substep(a, q, qd, tgt, tau, false, /*cold=*/true, /*seed_only=*/true, sat, sign);
+    thread_substep<C>(a, q, qd, tgt, tau, false, /*cold=*/true, /*seed_only=*/true, sat, sign);
   if (!a.seed) {
 #pragma unroll 1
     for (int k = 0; k < a.n_substeps; ++k)
-      thread_substep(a, q, qd, tgt, tau, c.tau != nullptr, /*cold=*/!a.warm,
-                     /*seed_only=*/false, sat, sign);
+      thread_substep<C>(a, q, qd, tgt, tau, c.tau != nullptr, /*cold=*/!a.warm,
+                        /*seed_only=*/false, sat, sign);
 #pragma unroll
-    for (int d = 0; d < N; ++d) {
+    for (int d = 0; d < ND; ++d) {
       q_out[off + d] = q[d];
       qd_out[off + d] = qd[d];
     }
   }
   if (c.sat_out != nullptr) {
 #pragma unroll
-    for (int d = 0; d < N; ++d) {
+    for (int d = 0; d < ND; ++d) {
       c.sat_out[off + d] = sat[d] ? 1 : 0;
       c.sign_out[off + d] = sign[d];
     }
   }
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes by ops/cuda_dynamics.py.  Launches the
-// lane-group kernel (lanes_per_env 8) or the one-env-per-thread kernel
-// (lanes_per_env 1), warm-started (warm 1) or cold (warm 0), on the caller's
-// stream on card `device` and returns cudaGetLastError() (0 on success).
-// Optional, (B, 7) each, null where not given: tau (the contact torque),
-// sat_in/sign_in (a carried active set, read in place of the seed when
-// warm), sat_out/sign_out (the set after the launch).  seed 1 runs only the
-// cold pre-solve and writes the set to sat_out/sign_out, and nothing else.
-extern "C" int motor_steps_launch(const float* q, const float* qd, const float* tgt,
-                                  float* q_out, float* qd_out, int B, const float* model,
-                                  int n_substeps, double dt, int ctrl_mode,
-                                  double position_gain, int cold_iters, int warm_iters,
-                                  int device, void* stream, int lanes_per_env, int warm,
-                                  const float* tau, const unsigned char* sat_in,
-                                  const float* sign_in, unsigned char* sat_out,
-                                  float* sign_out, int seed) {
-  if (lanes_per_env != LANES && lanes_per_env != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((sat_in == nullptr) != (sign_in == nullptr) ||
-      (sat_out == nullptr) != (sign_out == nullptr) || (seed && sat_out == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  Args a;
-  memcpy(&a.m, model, sizeof(Model));
-  for (int d = 0; d < N; ++d) a.cap[d] = static_cast<float>(dt * a.m.effort[d]);
-  // the composite masses of CRBA and their CoM weights do not depend on q:
-  // folded here in float, as the kernel would compute them
-  a.comp_m[N - 1] = a.m.mass[N - 1];
-  a.comp_w[0] = 0.0f;
-  for (int d = N - 1; d > 0; --d) {
-    a.comp_m[d - 1] = a.m.mass[d - 1] + a.comp_m[d];
-    a.comp_w[d] = 1.0f / fmaxf(a.comp_m[d - 1], 1e-12f);
+// The kernel argument block of chain C: the model table, the impulse caps,
+// and the composite masses and CoM weights of CRBA, which do not depend on q
+// and are folded here in float as the kernel would compute them: each dof's
+// composite joins its parent's, from the last dof down (for the welded
+// Panda, link d into link d-1).
+template <class C>
+void fill_args(ArgsT<C::N>& a, const float* model, int n_substeps, double dt, int ctrl_mode,
+               double position_gain, int cold_iters, int warm_iters, int warm, int seed) {
+  constexpr int ND = C::N;
+  memcpy(&a.m, model, sizeof(ModelT<ND>));
+  for (int d = 0; d < ND; ++d) {
+    a.cap[d] = static_cast<float>(dt * a.m.effort[d]);
+    a.comp_m[d] = a.m.mass[d];
+    a.comp_mp[d] = 0.0f;
+    a.comp_w[d] = 0.0f;
+  }
+  for (int d = ND - 1; d >= 0; --d) {
+    const int pd = C::parent(d);
+    if (pd < 0) continue;
+    a.comp_mp[d] = a.comp_m[pd];
+    a.comp_m[pd] = a.comp_m[pd] + a.comp_m[d];
+    a.comp_w[d] = 1.0f / fmaxf(a.comp_m[pd], 1e-12f);
   }
   a.vgain = static_cast<float>(position_gain * (1.0 / dt));
   a.dt = static_cast<float>(dt);
@@ -990,33 +1130,106 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
   a.warm_iters = warm_iters;
   a.warm = warm;
   a.seed = seed;
-  const Carry c = {tau, sat_in, sign_in, sat_out, sign_out};
-  if (B > 0 && lanes_per_env == LANES) {
-    const int blocks = (B + GROUPS - 1) / GROUPS;
-    motor_steps_lanes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        q, qd, tgt, q_out, qd_out, B, a, c);
-  } else if (B > 0) {
+}
+
+// One launch of the one-env-per-thread kernel of chain C.
+template <class C>
+int launch_chain(const float* q, const float* qd, const float* tgt, float* q_out,
+                 float* qd_out, int B, const float* model, int n_substeps, double dt,
+                 int ctrl_mode, double position_gain, int cold_iters, int warm_iters,
+                 void* stream, int warm, const Carry& c, int seed) {
+  ArgsT<C::N> a;
+  fill_args<C>(a, model, n_substeps, dt, ctrl_mode, position_gain, cold_iters, warm_iters,
+               warm, seed);
+  if (B > 0) {
     const int blocks = (B + THREADS - 1) / THREADS;
-    motor_steps_thread_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    motor_steps_thread_kernel<C><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         q, qd, tgt, q_out, qd_out, B, a, c);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Number of floats the model table must hold (checked by the wrapper).
-extern "C" int motor_steps_model_floats() { return static_cast<int>(sizeof(Model) / sizeof(float)); }
+// the chain ids of the C interface, in the order of the chain list above
+constexpr int N_CHAINS = 3;
+constexpr int CHAIN_NDOF[N_CHAINS] = {PandaChain::N, MyCobotChain::N, GripperPandaChain::N};
 
-// What the card makes of a kernel (lanes_per_env as for the launch):
-// resident blocks per SM (the card's own occupancy query), registers per
-// thread, local memory per thread in bytes, and threads per block.  Returns a
-// cudaError_t (0 on success).
-extern "C" int motor_steps_occupancy(int device, int lanes_per_env, int* blocks_per_sm,
-                                     int* regs, int* local_bytes, int* threads) {
-  if (lanes_per_env != LANES && lanes_per_env != 1)
+}  // namespace
+
+// C entry point, bound with ctypes by ops/cuda_dynamics.py.  Launches K1 for
+// chain `chain` (0 the welded Panda, 1 MyCobot, 2 the 9-dof Panda): the
+// lane-group kernel (lanes_per_env 8, the welded Panda only) or the
+// one-env-per-thread kernel (lanes_per_env 1), warm-started (warm 1) or cold
+// (warm 0), on the caller's stream on card `device`, and returns
+// cudaGetLastError() (0 on success).  Optional, (B, ndof) each, null where
+// not given: tau (the contact torque), sat_in/sign_in (a carried active set,
+// read in place of the seed when warm), sat_out/sign_out (the set after the
+// launch).  seed 1 runs only the cold pre-solve and writes the set to
+// sat_out/sign_out, and nothing else.
+extern "C" int motor_steps_launch(const float* q, const float* qd, const float* tgt,
+                                  float* q_out, float* qd_out, int B, const float* model,
+                                  int n_substeps, double dt, int ctrl_mode,
+                                  double position_gain, int cold_iters, int warm_iters,
+                                  int device, void* stream, int lanes_per_env, int warm,
+                                  const float* tau, const unsigned char* sat_in,
+                                  const float* sign_in, unsigned char* sat_out,
+                                  float* sign_out, int seed, int chain) {
+  if (chain < 0 || chain >= N_CHAINS || (lanes_per_env != LANES && lanes_per_env != 1) ||
+      (lanes_per_env == LANES && chain != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((sat_in == nullptr) != (sign_in == nullptr) ||
+      (sat_out == nullptr) != (sign_out == nullptr) || (seed && sat_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Carry c = {tau, sat_in, sign_in, sat_out, sign_out};
+  if (lanes_per_env == LANES) {
+    Args a;
+    fill_args<PandaChain>(a, model, n_substeps, dt, ctrl_mode, position_gain, cold_iters,
+                          warm_iters, warm, seed);
+    if (B > 0) {
+      const int blocks = (B + GROUPS - 1) / GROUPS;
+      motor_steps_lanes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          q, qd, tgt, q_out, qd_out, B, a, c);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (chain == 0)
+    return launch_chain<PandaChain>(q, qd, tgt, q_out, qd_out, B, model, n_substeps, dt,
+                                    ctrl_mode, position_gain, cold_iters, warm_iters, stream,
+                                    warm, c, seed);
+  if (chain == 1)
+    return launch_chain<MyCobotChain>(q, qd, tgt, q_out, qd_out, B, model, n_substeps, dt,
+                                      ctrl_mode, position_gain, cold_iters, warm_iters, stream,
+                                      warm, c, seed);
+  return launch_chain<GripperPandaChain>(q, qd, tgt, q_out, qd_out, B, model, n_substeps, dt,
+                                         ctrl_mode, position_gain, cold_iters, warm_iters,
+                                         stream, warm, c, seed);
+}
+
+// Number of floats the model table of chain `chain` must hold (checked by
+// the wrapper); 0 for an unknown chain.
+extern "C" int motor_steps_model_floats(int chain) {
+  if (chain < 0 || chain >= N_CHAINS) return 0;
+  return static_cast<int>(sizeof(ModelT<1>) / sizeof(float)) * CHAIN_NDOF[chain];
+}
+
+// What the card makes of a kernel (lanes_per_env and chain as for the
+// launch): resident blocks per SM (the card's own occupancy query),
+// registers per thread, local memory per thread in bytes, and threads per
+// block.  Returns a cudaError_t (0 on success).
+extern "C" int motor_steps_occupancy(int device, int lanes_per_env, int chain,
+                                     int* blocks_per_sm, int* regs, int* local_bytes,
+                                     int* threads) {
+  if (chain < 0 || chain >= N_CHAINS || (lanes_per_env != LANES && lanes_per_env != 1) ||
+      (lanes_per_env == LANES && chain != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const auto kernel = lanes_per_env == LANES ? motor_steps_lanes_kernel : motor_steps_thread_kernel;
+  const void* kernel =
+      lanes_per_env == LANES ? reinterpret_cast<const void*>(motor_steps_lanes_kernel)
+      : chain == 0           ? reinterpret_cast<const void*>(motor_steps_thread_kernel<PandaChain>)
+      : chain == 1 ? reinterpret_cast<const void*>(motor_steps_thread_kernel<MyCobotChain>)
+                   : reinterpret_cast<const void*>(motor_steps_thread_kernel<GripperPandaChain>);
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);

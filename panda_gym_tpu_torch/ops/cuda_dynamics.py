@@ -6,11 +6,16 @@ The kernel is ``csrc/motor_steps.cu``, built by ``ops/_build.py`` with nvcc
 for sm_90a and bound with ctypes; its plain version is
 ``ops/scalarized.py::make_batched_motor_steps``.
 
-What bounds it on the H100: per env it moves 140 bytes (q, qd, target read,
-q, qd written) and does about 82k fp32 operations per policy step, so the
-work is bound by operations (67 TFLOP/s fp32 outside the tensor cores), not
-by bytes; and those operations form one long chain per env.  Two kernels
-of one source do it, and the wrapper picks one from B and the card:
+It is built for three chains (``CHAINS``): the welded 7-dof Panda, MyCobot's
+6 serial revolute dofs, and the 9-dof Panda whose prismatic fingers both
+hang from link 6.  Any other chain raises NotImplementedError.
+
+What bounds it on the H100: per env of the welded Panda it moves 140 bytes
+(q, qd, target read, q, qd written) and does about 82k fp32 operations per
+policy step, so the work is bound by operations (67 TFLOP/s fp32 outside
+the tensor cores), not by bytes; and those operations form one long chain
+per env.  Two kernels of one source do it for the welded Panda, and the
+wrapper picks one from B and the card:
 
 - up to one wave of its grid (every block resident at once: 132 SMs x 2
   blocks x 16 envs = 4,224 envs on the H100), the lane-group kernel, which
@@ -21,6 +26,9 @@ of one source do it, and the wrapper picks one from B and the card:
 - past it, the one-env-per-thread kernel: the card is full there, time
   follows the instructions issued per env, and the lane groups issue about
   4x as many (bench.py's B = 65536: ~0.42 ms against ~2.2 ms on the H100).
+
+MyCobot and the 9-dof Panda run the one-env-per-thread kernel at every B:
+the lane groups own one dof per lane, 8 lanes, which cannot hold 9.
 
 In the lane-group kernel the joint frames, the links' own RNEA
 forces, the CRBA columns and the rows of the LCP's matrix-vector products
@@ -62,15 +70,23 @@ import ctypes
 import numpy as np
 import torch
 
-from panda_gym_tpu_torch.models.chain import ChainModel, JOINT_REVOLUTE
+from panda_gym_tpu_torch.models.chain import ChainModel
 from panda_gym_tpu_torch.ops import _build
 from panda_gym_tpu_torch.ops import dynamics as D
 from panda_gym_tpu_torch.ops import scalarized as S
 
-NDOF = 7
 KERNEL = "motor_steps"
 # lanes per env of the two kernels: the lane-group kernel, one env per thread
 LANES, THREAD = 8, 1
+# the chains motor_steps.cu is built for, (ndof, parents, joint types) ->
+# its chain id: the welded Panda, MyCobot, the Panda with prismatic fingers
+CHAINS = {
+    (7, (-1, 0, 1, 2, 3, 4, 5), (0,) * 7): 0,
+    (6, (-1, 0, 1, 2, 3, 4), (0,) * 6): 1,
+    (9, (-1, 0, 1, 2, 3, 4, 5, 6, 6), (0,) * 7 + (1, 1)): 2,
+}
+# the welded Panda's id, the one chain the lane-group kernel runs
+PANDA = 0
 
 
 def pack_model(model: ChainModel) -> np.ndarray:
@@ -82,29 +98,44 @@ def pack_model(model: ChainModel) -> np.ndarray:
         [np.asarray(a, np.float32).reshape(-1) for a in parts]))
 
 
+def chain_id(model: ChainModel) -> int:
+    """The chain id of ``model`` in motor_steps.cu; NotImplementedError
+    for a chain K1 is not built for."""
+    key = (model.ndof, tuple(model.parent_tuple), tuple(model.jtype_tuple))
+    if key not in CHAINS:
+        raise NotImplementedError(
+            f"K1 is built for the welded 7-dof Panda, MyCobot's 6 dofs and the "
+            f"9-dof Panda with prismatic fingers, not for the chain with "
+            f"parents {key[1]} and joint types {key[2]}: a new chain waits for "
+            f"its instantiation (ROADMAP queue 2)")
+    return CHAINS[key]
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.motor_steps_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                  + [ctypes.c_void_p] * 5 + [ctypes.c_int])
+                  + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int])
     fn.restype = ctypes.c_int
+    lib.motor_steps_model_floats.argtypes = [ctypes.c_int]
     lib.motor_steps_model_floats.restype = ctypes.c_int
-    lib.motor_steps_occupancy.argtypes = ([ctypes.c_int] * 2
+    lib.motor_steps_occupancy.argtypes = ([ctypes.c_int] * 3
                                           + [ctypes.POINTER(ctypes.c_int)] * 4)
     lib.motor_steps_occupancy.restype = ctypes.c_int
     return fn
 
 
-def occupancy(device_index: int = 0, lanes_per_env: int = LANES) -> dict:
-    """What the card makes of one of K1's kernels: resident blocks per SM
-    (the CUDA occupancy query), registers per thread, local memory per
-    thread (spill and stack, bytes) and threads per block."""
+def occupancy(device_index: int = 0, lanes_per_env: int = LANES,
+              chain: int = PANDA) -> dict:
+    """What the card makes of one of K1's kernels (and chains): resident
+    blocks per SM (the CUDA occupancy query), registers per thread, local
+    memory per thread (spill and stack, bytes) and threads per block."""
     lib = _build.load(KERNEL)
     _bind(lib)
     vals = [ctypes.c_int() for _ in range(4)]
-    err = lib.motor_steps_occupancy(device_index, lanes_per_env,
+    err = lib.motor_steps_occupancy(device_index, lanes_per_env, chain,
                                     *(ctypes.byref(v) for v in vals))
     if err != 0:
         raise RuntimeError(f"K1 occupancy query failed: cudaError {err}")
@@ -132,16 +163,13 @@ class CudaMotorSteps:
     """K1 wrapper: ``(q, qd, target) -> (q, qd)`` after ``n_substeps``.
 
     ``launches`` counts kernel launches, and nothing else;
-    ``kernel_launches`` splits them by kernel (``LANES``, ``THREAD``)."""
+    ``kernel_launches`` splits them by kernel (``LANES``, ``THREAD``).
+    ``chain`` is the model's chain id (``CHAINS``)."""
 
     def __init__(self, model: ChainModel, *, n_substeps: int, dt: float,
                  ctrl_mode: int, warm_start: bool):
-        if (model.ndof != NDOF
-                or model.parent_tuple != tuple(range(-1, NDOF - 1))
-                or any(t != JOINT_REVOLUTE for t in model.jtype_tuple)):
-            raise NotImplementedError(
-                "K1 covers 7-dof serial revolute chains (the welded Panda); "
-                "other models wait for their own kernel")
+        self.chain = chain_id(model)
+        self.ndof = model.ndof
         self.n_substeps = int(n_substeps)
         self.dt = float(dt)
         self.ctrl_mode = int(ctrl_mode)
@@ -156,8 +184,11 @@ class CudaMotorSteps:
         self.kernel_launches = {LANES: 0, THREAD: 0}
 
     def pick(self, q) -> int:
-        """The kernel the wrapper runs at q's batch: ``LANES`` up to one
-        wave of the lane-group kernel, ``THREAD`` past it."""
+        """The kernel the wrapper runs at q's batch: for the welded Panda
+        ``LANES`` up to one wave of the lane-group kernel, ``THREAD`` past
+        it; ``THREAD`` at every batch for the other chains."""
+        if self.chain != PANDA:
+            return THREAD
         past_wave = (q.device.type == "cuda"
                      and q.shape[0] > lanes_wave(q.device.index))
         return THREAD if past_wave else LANES
@@ -194,7 +225,7 @@ class CudaMotorSteps:
         return q, qd, warm_out
 
     def _cols(self, *ts):
-        return [[t[:, d] for d in range(NDOF)] for t in ts]
+        return [[t[:, d] for d in range(self.ndof)] for t in ts]
 
     def plain_seed(self, q, qd, target):
         """``seed``'s plain version, on any device."""
@@ -233,6 +264,9 @@ class CudaMotorSteps:
         if lanes_per_env not in (LANES, THREAD):
             raise ValueError(f"lanes_per_env is {LANES} or {THREAD}, "
                              f"got {lanes_per_env}")
+        if lanes_per_env == LANES and self.chain != PANDA:
+            raise ValueError("the lane-group kernel runs the welded Panda "
+                             "only")
         if q.device.type != "cuda":
             raise ValueError(f"K1 runs on cuda or cpu tensors, got {q.device}")
         named = [("q", q, torch.float32), ("qd", qd, torch.float32),
@@ -248,15 +282,15 @@ class CudaMotorSteps:
                 raise ValueError(f"{name} is on {t.device}, q on {q.device}")
             if t.dtype != dtype:
                 raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-            if t.dim() != 2 or t.shape[1] != NDOF or t.shape != q.shape:
-                raise ValueError(
-                    f"{name} must be (B, {NDOF}) like q, got {tuple(t.shape)}")
+            if t.dim() != 2 or t.shape[1] != self.ndof or t.shape != q.shape:
+                raise ValueError(f"{name} must be (B, {self.ndof}) like q, "
+                                 f"got {tuple(t.shape)}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
         if self._fn is None:
             lib = _build.load(KERNEL)
             fn = _bind(lib)
-            if lib.motor_steps_model_floats() != self._table.size:
+            if lib.motor_steps_model_floats(self.chain) != self._table.size:
                 raise RuntimeError("model table does not match motor_steps.cu")
             self._fn = fn
         q_out = None if seed else torch.empty_like(q)
@@ -272,7 +306,7 @@ class CudaMotorSteps:
             self.ctrl_mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
             D.MOTOR_LCP_WARM_ITERS, q.device.index, stream, lanes_per_env,
             int(warm), ptr(tau_ext), ptr(w_in[0]), ptr(w_in[1]),
-            ptr(w_out[0]), ptr(w_out[1]), int(seed))
+            ptr(w_out[0]), ptr(w_out[1]), int(seed), self.chain)
         if err != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {err}")
         self.launches += 1

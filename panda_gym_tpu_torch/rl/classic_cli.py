@@ -1,14 +1,16 @@
 """Training entry point of the port for the classic panda-gym tasks, the
 counterpart of tools/train_classic.py: TQC/SAC + HER on a sparse-reward
-Reach, Push or Slide with the same Trainer as the ReachAO curriculum.
+Reach, Push, Slide, PickAndPlace, Stack, Flip or MyCobotReach with the same
+Trainer as the ReachAO curriculum.
 
     python -m panda_gym_tpu_torch.rl.classic_cli --task push \\
         --max-timesteps 1000000 --n-envs 64 --group classic_campaign
 
-Options keep tools/train_classic.py's names.  Training runs on the card
-unless ``--device cpu`` is given; without a card it raises.  The tasks of
-the next slice (pickandplace, stack, flip, mycobotreach) raise
-NotImplementedError, as the TD3 and DDPG learners do.
+Options keep tools/train_classic.py's names, and their defaults: the
+reference's control type (js for reach, push and mycobotreach, ee for the
+rest) and horizon (50, 100 for stack).  Training runs on the card unless
+``--device cpu`` is given; without a card it raises.  The TD3 and DDPG
+learners raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -16,6 +18,13 @@ import argparse
 import os
 
 from panda_gym_tpu_torch.rl.config import TrainConfig
+
+
+def task_defaults(task: str):
+    """The reference's control type and episode horizon of a task
+    (tools/train_classic.py:29-43, panda_gym/__init__.py:19-91)."""
+    control = "js" if task in ("reach", "push", "mycobotreach") else "ee"
+    return control, 100 if task == "stack" else 50
 
 
 def parse_args(argv=None):
@@ -62,10 +71,10 @@ def main(argv=None):
     from panda_gym_tpu_torch.rl.train import Trainer
 
     device = resolve_device(args.device)
-    horizon = args.max_ep_steps or (100 if args.task == "stack" else 50)
-    # the task's reference default, recorded in config.json as the env
-    # factory uses it
-    default_ct = "js" if args.task in ("reach", "push", "mycobotreach") else "ee"
+    # the task's reference defaults, recorded in config.json as the env
+    # factory uses them
+    default_ct, default_horizon = task_defaults(args.task)
+    horizon = args.max_ep_steps or default_horizon
     control_type = args.control_type or default_ct
     kw = dict(reward_type=args.reward_type, control_type=control_type,
               device=device)

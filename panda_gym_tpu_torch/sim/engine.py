@@ -10,11 +10,11 @@ its plain version for CPU tensors.  Moving obstacles advance by their
 velocity over the policy step.  The ReachAO configuration (a collision
 check after every substep) runs ``CollisionPhysics``: K1 once per substep
 on the card, and the group distances below, which the observations use
-too.  Free bodies (Push, Slide) run ``ContactPhysics``: penalty contact
-against the ground and the robot's capsules, the reaction J^T f on the arm,
-and K1 once per substep with that torque (ops/scalarized_contact.py:
-135-463 of the JAX package, in tensor form).  Forces between bodies (Stack)
-are not ported yet.
+too.  Free bodies (Push, Slide, PickAndPlace, Stack, Flip) run
+``ContactPhysics``: penalty contact against the ground, the robot's
+capsules and the other bodies, the reaction J^T f on the arm, and K1 once
+per substep with that torque (ops/scalarized_contact.py:135-463 of the JAX
+package, in tensor form).
 """
 from __future__ import annotations
 
@@ -257,6 +257,42 @@ def robot_body_contact(model: ChainModel, fk, cap_p0, cap_p1,
             _sum_in_order(tau, 1))
 
 
+def body_body_forces(scene: SceneParams, a: int, b: int, pos_a, R_a, vel_a,
+                     ang_a, pos_b, R_b, vel_b, ang_b):
+    """Body a's contact samples against body b's volume, a sphere or
+    else a box of half extents ``body_size[b]`` (engine.py:127-160, in the
+    order of the batched form, scalarized_contact.py:290-339): the force and
+    torque on a, then on b, (B, 3) each.  The pair's forces are equal and
+    opposite; the normal points from b's surface toward a's sample."""
+    samples = _vec(scene.body_samples[a], pos_a)          # (K, 4)
+    mask = _vec(scene.body_sample_mask[a], pos_a)[:, None]
+    rad = samples[:, 3]
+    p_w = _mv(R_a[:, None], samples[:, :3]) + pos_a[:, None]   # (B, K, 3)
+    size_b = [float(v) for v in scene.body_size[b]]
+    if int(scene.body_shape[b]) == SHAPE_SPHERE:
+        delta = p_w - pos_b[:, None]
+        dn = torch.sqrt(torch.clamp_min(C.dot3(delta, delta), 0.0))
+        n_ba = delta / torch.clamp_min(dn, C.EPS)[..., None]
+        dist = (dn - size_b[0]) - rad
+    else:
+        x = _mtv(R_b[:, None], p_w - pos_b[:, None])
+        cb, sd = C.point_box_closest(x, size_b)
+        out_n = (x - cb) / torch.clamp_min(torch.abs(sd), C.EPS)[..., None]
+        n_loc = torch.where((sd > 0)[..., None], out_n,
+                            C._inside_normal(x, size_b))
+        n_ba = _mv(R_b[:, None], n_loc)
+        dist = sd - rad
+    rel_a = p_w - pos_a[:, None]
+    rel_b = p_w - pos_b[:, None]
+    v_pt_a = vel_a[:, None] + C.cross3(ang_a[:, None].expand_as(rel_a), rel_a)
+    v_pt_b = vel_b[:, None] + C.cross3(ang_b[:, None].expand_as(rel_b), rel_b)
+    mu = float(scene.body_mu[a]) * float(scene.body_mu[b])
+    f_a = mask * C.penalty_force(-dist, n_ba, v_pt_a - v_pt_b, mu)
+    force_a = _sum_in_order(f_a, 1)
+    return (force_a, _sum_in_order(C.cross3(rel_a, f_a), 1), -force_a,
+            _sum_in_order(C.cross3(rel_b, -f_a), 1))
+
+
 def _cap_support(model: ChainModel, device):
     """(ncap, ndof) bools: the dofs that carry each capsule's body; none for
     a capsule on the base (scalarized_contact.py:171-177)."""
@@ -273,8 +309,9 @@ class ContactPhysics:
     (scalarized_contact.py:135-463, engine.py:294-365).  Per substep, in the
     reference's order: FK with velocities, the ground forces on every body,
     the robot's capsules against every body (forces, and the reaction
-    tau_ext on the arm), semi-implicit Euler of the bodies, then the motor
-    substep with tau_ext.
+    tau_ext on the arm), the forces between the bodies of each pair in
+    ``body_pairs`` (a's samples against b's volume), semi-implicit Euler of
+    the bodies, then the motor substep with tau_ext.
 
     The motor substep is K1 launched once per substep on a CUDA tensor (its
     wrapper ``motor``, whose ``launches`` count its runs), with tau_ext and,
@@ -291,11 +328,8 @@ class ContactPhysics:
                  n_substeps: int, ctrl_mode: int, robot_contact: bool,
                  body_pairs: Sequence[Tuple[int, int]] = (),
                  warm_start: Optional[bool] = None):
-        if body_pairs:
-            raise NotImplementedError(
-                "forces between free bodies (Stack) are not ported yet "
-                "(ROADMAP item 13b)")
         self.model = model
+        self.body_pairs = tuple((int(a), int(b)) for a, b in body_pairs)
         self.scene = scene
         self.n_substeps = n_substeps
         self.dt = TIMESTEP
@@ -326,6 +360,12 @@ class ContactPhysics:
                 f, t, tau_ext = f + fr, t + tr, tau_ext + te
             forces.append(f)
             torques.append(t)
+        for a, b in self.body_pairs:
+            fa, ta, fb, tb = body_body_forces(
+                self.scene, a, b, pos[:, a], R[:, a], vel[:, a], ang[:, a],
+                pos[:, b], R[:, b], vel[:, b], ang[:, b])
+            forces[a], torques[a] = forces[a] + fa, torques[a] + ta
+            forces[b], torques[b] = forces[b] + fb, torques[b] + tb
         return torch.stack(forces, 1), torch.stack(torques, 1), tau_ext, R
 
     def integrate(self, pos, quat, vel, ang, force, torque, R):

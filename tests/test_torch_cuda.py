@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: kernel K1 against its plain version
 (with its one-substep launches of the contact step: the seed, the carried
-active set, the contact torque), the batched Reach, ReachAO, Push and Slide
-envs, the trainer (HER sample and TQC
+active set, the contact torque) on the welded Panda, MyCobot and the 9-dof
+Panda, the batched Reach, ReachAO, Push, Slide, PickAndPlace and
+MyCobotReach envs, the trainer (HER sample and TQC
 update against the CPU, a short Reach run), the batched IK of the
 evaluation's start poses (against the CPU), and the paths of the NEO prior
 and the ee/pcc control modes (against the CPU) on the card.
@@ -22,6 +23,7 @@ import torch
 from panda_gym_tpu_torch.envs.core import _hi_prec
 from panda_gym_tpu_torch.envs.panda_tasks import make_core
 from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+from panda_gym_tpu_torch.models.mycobot import make_mycobot_model
 from panda_gym_tpu_torch.models.panda import EE_SITE, make_panda_model
 from panda_gym_tpu_torch.ops import cuda_dynamics as CD
 from panda_gym_tpu_torch.ops import dynamics as D
@@ -49,10 +51,11 @@ def card():
 
 def _inputs(model, B, mode, seed, device):
     rng = np.random.default_rng(seed)
-    q = rng.uniform(np.asarray(model.q_lo), np.asarray(model.q_hi), (B, 7))
-    qd = rng.normal(0, 0.5, (B, 7))
-    tgt = (q + rng.normal(0, 0.05, (B, 7)) if mode == 0
-           else rng.normal(0, 1.0, (B, 7)))
+    n = model.ndof
+    q = rng.uniform(np.asarray(model.q_lo), np.asarray(model.q_hi), (B, n))
+    qd = rng.normal(0, 0.5, (B, n))
+    tgt = (q + rng.normal(0, 0.05, (B, n)) if mode == 0
+           else rng.normal(0, 1.0, (B, n)))
     return [torch.as_tensor(a, dtype=torch.float32, device=device)
             for a in (q, qd, tgt)]
 
@@ -182,6 +185,129 @@ def test_contact_step_k1_route_matches_plain(card, task):
     # the pushed objects moved; the others stay where they were on the table
     assert ((out_k.body_pos[:8] - pos[:8]).abs().amax((1, 2)) > 1e-3).all()
     assert ((out_k.body_pos[8:, 0, :2] - pos[8:, 0, :2]).abs() < 1e-4).all()
+
+
+# the chains besides the welded Panda, which run the one-env-per-thread
+# kernel at every batch
+CHAINS = {
+    "mycobot": lambda: make_mycobot_model(base_position=(-0.6, 0.0, 0.0)),
+    "panda9": lambda: make_panda_model(base_position=(-0.6, 0.0, 0.0),
+                                       gripper="prismatic"),
+}
+
+
+@pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
+@pytest.mark.parametrize("B", [1, 1000, 4100])
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+def test_k1_chain_matches_plain(card, chain, B, mode):
+    """20 warm substeps of MyCobot and of the 9-dof Panda: the wrapper picks
+    the one-env-per-thread kernel; q, qd within 2e-5, 2e-3."""
+    model = CHAINS[chain]()
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=DT, ctrl_mode=mode,
+                                  warm_start=True)
+    args = _inputs(model, B, mode, 12, card)
+    qk, qdk = k1(*args)
+    qp, qdp = k1.plain(*args)
+    torch.cuda.synchronize()
+    assert k1.kernel_launches == {CD.LANES: 0, CD.THREAD: 1}
+    assert (qk - qp).abs().max().item() <= ATOL_Q
+    assert (qdk - qdp).abs().max().item() <= ATOL_QD
+
+
+@pytest.mark.parametrize("chain", sorted(CHAINS))
+def test_k1_chain_tau_ext_substeps_match_plain(card, chain):
+    """A seed and 20 one-substep launches with a contact torque, each warm
+    from the set of the one before, against the plain chain substep by
+    substep (q, qd within 2e-5, 2e-3, the active sets equal), and equal bit
+    for bit to one 20-substep launch with that torque."""
+    model = CHAINS[chain]()
+    B = 1000
+    q, qd, tgt = _inputs(model, B, 0, 32, card)
+    tau = torch.randn(B, model.ndof, generator=torch.Generator(
+        card).manual_seed(33), device=card) * 5.0
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=1, dt=DT, ctrl_mode=0,
+                                  warm_start=False)
+    k20 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=DT, ctrl_mode=0,
+                                   warm_start=True)
+    q20, qd20 = k20._launch(q, qd, tgt, CD.THREAD, 20, True, tau_ext=tau)
+    warm = k1.seed(q, qd, tgt)
+    wp = k1.plain_seed(q, qd, tgt)
+    qp, qdp = q, qd
+    for _ in range(20):
+        q, qd, warm = k1.substep(q, qd, tgt, tau, warm)
+        qp, qdp, wp = k1.plain_substep(qp, qdp, tgt, tau, wp)
+        assert (q - qp).abs().max().item() <= ATOL_Q
+        assert (qd - qdp).abs().max().item() <= ATOL_QD
+        assert torch.equal(warm[0], wp[0])
+    torch.cuda.synchronize()
+    assert k1.kernel_launches == {CD.LANES: 0, CD.THREAD: 21}
+    assert torch.equal(q, q20) and torch.equal(qd, qd20)
+
+
+def _grip(env, states, n):
+    """Open the fingers of envs 0..n-1 to 3 cm each and put their cube
+    between them, turned with the hand, 2 mm into each finger's capsule."""
+    q = states.q.clone()
+    q[:n, 7:9] = 0.03
+    p0, p1 = K.capsule_endpoints_world(env.model, K.fk_world(env.model, q))
+    mid = 0.5 * (p0 + p1)
+    left, right = (env.model.cap_body_tuple.index(d) for d in (7, 8))
+    d = mid[:n, right] - mid[:n, left]
+    yaw = torch.atan2(d[:, 1], d[:, 0])
+    pos, quat = states.body_pos.clone(), states.body_quat.clone()
+    pos[:n, 0] = 0.5 * (mid[:n, left] + mid[:n, right])
+    zero = torch.zeros_like(yaw)
+    quat[:n, 0] = torch.stack([zero, zero, torch.sin(yaw / 2),
+                               torch.cos(yaw / 2)], -1)
+    return states.replace(q=q, ctrl_target=q.clone(), body_pos=pos,
+                          body_quat=quat)
+
+
+def test_pick_and_place_step_k1_route_matches_plain(card):
+    """One PickAndPlace policy step on the card, the cube gripped in envs
+    0-7: K1 on the 9-dof chain with tau_ext, a seed and 20 warm one-substep
+    launches on the one-env-per-thread kernel, against the plain route from
+    the same states."""
+    env = make_core("pickandplace")
+    gen = torch.Generator(card).manual_seed(0)
+    states, _ = env.batched_reset(256, gen)
+    states = _grip(env, states, 8)
+    act = torch.rand(256, 4, generator=gen, device=card) * 2 - 1
+    act[:, 3] = -0.02
+    states = _hi_prec(env.robot.set_action)(states, act)
+    phys = env.physics_step_batched
+    *_, tau, _ = _hi_prec(phys.forces)(states.q, states.qd, states.body_pos,
+                                       states.body_quat, states.body_vel,
+                                       states.body_ang)
+    assert (tau[:8, 7:].abs() > 1.0).all()
+    out_k = phys(states)
+    out_p = phys(states, plain=True)
+    assert phys.motor.kernel_launches == {CD.LANES: 0, CD.THREAD: 21}
+    assert (out_k.q - out_p.q).abs().max().item() <= ATOL_Q
+    assert (out_k.qd - out_p.qd).abs().max().item() <= ATOL_QD
+    assert ((out_k.body_pos[:8, 0] - states.body_pos[:8, 0]).abs().amax(1)
+            > 1e-4).all()
+
+
+def test_mycobot_reach_step_k1_route_matches_plain(card):
+    """One MyCobotReach step on the card: K1 once, 20 warm substeps of the
+    6-dof chain on the one-env-per-thread kernel, against the plain
+    version from the same states."""
+    env = make_core("mycobotreach")
+    gen = torch.Generator(card).manual_seed(0)
+    states, _ = env.batched_reset(1000, gen)
+    states = states.replace(q=states.q + 0.3 * torch.rand(
+        1000, 6, generator=gen, device=card))
+    act = torch.rand(1000, 6, generator=gen, device=card) * 2 - 1
+    s_in = _hi_prec(env.robot.set_action)(states, act)
+    motor = env.physics_step_batched.motor
+    qp, qdp = motor.plain(s_in.q, s_in.qd, s_in.ctrl_target)
+    out, obs, *_ = env.batched_step(states, act)
+    torch.cuda.synchronize()
+    assert motor.kernel_launches == {CD.LANES: 0, CD.THREAD: 1}
+    assert (out.q - qp).abs().max().item() <= ATOL_Q
+    assert (out.qd - qdp).abs().max().item() <= ATOL_QD
+    assert obs["observation"].shape == (1000, 6)
 
 
 def test_reach_on_card_matches_cpu(card):

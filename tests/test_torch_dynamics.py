@@ -7,6 +7,8 @@ of tests/test_dynamics.py:295-296: q atol 2e-5, qd atol 2e-3.  The JAX
 side runs eagerly (``jax.disable_jit``): a few seconds per case, where
 compiling each configuration would take tens of seconds.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -171,10 +173,12 @@ def test_k1_wrapper_rejects_what_it_cannot_launch(models):
     with pytest.raises(ValueError):
         k1(meta, meta, meta)
     assert k1.launches == 0
-    with pytest.raises(NotImplementedError):
-        CD.make_cuda_motor_steps(torch_make_panda(gripper="prismatic"),
-                                 n_substeps=1, dt=DT, ctrl_mode=0,
-                                 warm_start=True)
+    # a chain K1 is not built for: the 9-dof Panda with revolute fingers
+    revolute_fingers = dataclasses.replace(
+        torch_make_panda(gripper="prismatic"), jtype_tuple=(0,) * 9)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        CD.make_cuda_motor_steps(revolute_fingers, n_substeps=1, dt=DT,
+                                 ctrl_mode=0, warm_start=True)
 
 
 def test_pack_model_matches_kernel_layout(models):

@@ -39,6 +39,7 @@ STUB = """
 #include <thread>
 #include <vector>
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
@@ -81,7 +82,7 @@ void host_launch(int blocks, int threads, F body) {
 }
 """
 # the two launch statements, and what runs them on the host
-LAUNCH = re.compile(r"(motor_steps_\w+_kernel)<<<(\w+), (\w+), 0, "
+LAUNCH = re.compile(r"(motor_steps_\w+_kernel(?:<\w+>)?)<<<(\w+), (\w+), 0, "
                     r"static_cast<cudaStream_t>\(stream\)>>>\((.*?)\);",
                     re.DOTALL)
 HOST_LAUNCH = r"host_launch(\2, \3, [&] { \1(\4); });"
@@ -108,10 +109,11 @@ def host_k1(tmp_path_factory):
 
 def _inputs(model, B, mode, seed):
     rng = np.random.default_rng(seed)
-    q = rng.uniform(model.q_lo, model.q_hi, (B, 7)).astype(np.float32)
-    qd = rng.normal(0, 0.5, (B, 7)).astype(np.float32)
-    tgt = ((q + rng.normal(0, 0.05, (B, 7))) if mode == 0
-           else rng.normal(0, 1.0, (B, 7))).astype(np.float32)
+    n = model.ndof
+    q = rng.uniform(model.q_lo, model.q_hi, (B, n)).astype(np.float32)
+    qd = rng.normal(0, 0.5, (B, n)).astype(np.float32)
+    tgt = ((q + rng.normal(0, 0.05, (B, n))) if mode == 0
+           else rng.normal(0, 1.0, (B, n))).astype(np.float32)
     return q, qd, tgt
 
 
@@ -124,13 +126,14 @@ def _run(host_k1, model, q, qd, tgt, *, mode, lanes, n_substeps, warm,
     """One launch of the host build: (q, qd, sat, sign), each None where
     the launch writes no such output."""
     fn = CD._bind(host_k1)
-    assert host_k1.motor_steps_model_floats() == CD.pack_model(model).size
+    chain = CD.chain_id(model)
+    assert host_k1.motor_steps_model_floats(chain) == CD.pack_model(model).size
     B = q.shape[0]
     q_out = None if seed else np.full_like(q, np.nan)
     qd_out = None if seed else np.full_like(q, np.nan)
     sat_out = sign_out = None
     if want_set or seed:
-        sat_out = np.full((B, 7), 7, np.uint8)
+        sat_out = np.full(q.shape, 7, np.uint8)
         sign_out = np.full_like(q, np.nan)
     sat_in, sign_in = (None, None) if warm_in is None else (
         np.ascontiguousarray(warm_in[0], np.uint8),
@@ -141,7 +144,7 @@ def _run(host_k1, model, q, qd, tgt, *, mode, lanes, n_substeps, warm,
              n_substeps, 1.0 / 500.0, mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
              D.MOTOR_LCP_WARM_ITERS, 0, None, lanes, int(warm), _ptr(tau),
              _ptr(sat_in), _ptr(sign_in), _ptr(sat_out), _ptr(sign_out),
-             int(seed))
+             int(seed), chain)
     assert err == 0
     return q_out, qd_out, sat_out, sign_out
 

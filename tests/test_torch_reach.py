@@ -158,15 +158,37 @@ def test_moving_obstacles_advance():
 
 
 def test_unported_paths_raise():
-    """The tasks of the next slice, and forces between free bodies."""
-    for task in ("pickandplace", "stack", "flip", "mycobotreach"):
-        with pytest.raises(NotImplementedError, match="13b"):
-            make_core(task, device="cpu")
+    """What no task of the JAX package combines: free bodies with a
+    collision check or with moving obstacles.  Forces between free bodies
+    are ported (Stack)."""
     env = make_core("reach", device="cpu")
     cube = dict(shape=0, size=(0.02,) * 3, mass=1.0)
     scene = build_scene([cube, cube], 1.1, 0.7, 0.4)
-    with pytest.raises(NotImplementedError, match="13b"):
-        TE.make_batched_physics_step(env.model, scene, body_pairs=((1, 0),))
+    for kw in (dict(check_collision=True), dict(moving_obstacles=True)):
+        with pytest.raises(NotImplementedError, match="free bodies"):
+            TE.make_batched_physics_step(env.model, scene,
+                                         body_pairs=((1, 0),), **kw)
+    phys = TE.make_batched_physics_step(env.model, scene,
+                                        body_pairs=((1, 0),))
+    assert isinstance(phys, TE.ContactPhysics)
+    assert phys.body_pairs == ((1, 0),)
+
+
+@pytest.mark.parametrize("task,ndof", [
+    ("reach", 7), ("push", 7), ("slide", 7), ("pickandplace", 9),
+    ("stack", 9), ("flip", 9), ("mycobotreach", 6)])
+def test_every_classic_task_builds(task, ndof):
+    """The JAX package's seven classic tasks, on the CPU when asked; its
+    physics the plain route there (no K1 launch)."""
+    env = make_core(task, device="cpu")
+    assert env.device.type == "cpu" and env.model.ndof == ndof
+    states, obs = env.batched_reset(2)
+    states, obs, *_ = env.batched_step(
+        states, torch.zeros(2, env.robot.action_dim))
+    assert torch.isfinite(obs["observation"]).all()
+    assert env.physics_step_batched.motor.launches == 0
+    with pytest.raises(ValueError, match="unknown task"):
+        make_core("reachao1", device="cpu")
 
 
 def test_cuda_device_without_card_raises(monkeypatch):

@@ -34,7 +34,7 @@ from panda_gym_tpu_torch import convert
 from panda_gym_tpu_torch.envs.panda_tasks import make_core, make_reach_core
 from panda_gym_tpu_torch.envs.tasks import reach_ao as trao
 from panda_gym_tpu_torch.eval import benchmark as EB
-from panda_gym_tpu_torch.rl import classic_cli, cli
+from panda_gym_tpu_torch.rl import classic_cli, cli, her
 from panda_gym_tpu_torch.rl import learners as TL
 from panda_gym_tpu_torch.rl import train as TT
 from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
@@ -422,6 +422,52 @@ def test_trainer_learns_push(tmp_path):
                if isinstance(v, float))
 
 
+@pytest.mark.parametrize("task,obs_dim,goal_dim", [("stack", 31, 6),
+                                                   ("flip", 20, 4)])
+def test_trainer_learns_gripper_goals(tmp_path, task, obs_dim, goal_dim):
+    """Stack's 6-D goal (both cubes) and Flip's quaternion goal through the
+    Trainer, HER and reward_from_aux: n_envs 2, horizon 3; the HER batch's
+    rewards are the task's own on the relabelled goals."""
+    cfg = _small_cfg(n_envs=2, max_ep_steps=[3], max_timesteps=12,
+                     learning_starts=6, interleave_min_buffer=6,
+                     full_ckpt_freq=0, stages=[task])
+    tr = TT.Trainer(cfg, lambda t, thr, spd: make_core(t, device="cpu"))
+    tr.learn()
+    assert tr.timesteps == 12 and tr.ts.step >= 1
+    assert tr.buffer.obs.shape[-1] == obs_dim
+    assert tr.buffer.desired.shape[-1] == goal_dim
+    assert tr.buffer.achieved.shape[-1] == goal_dim
+    env = make_core(task, device="cpu")
+    batch = her.sample(tr.buffer, torch.Generator().manual_seed(0), 64,
+                       tr._reward_fn(env))
+    d = batch["achieved_next"] - batch["goal"]
+    assert d.shape == (64, goal_dim)
+    want = env.task.reward_from_aux(env, batch["achieved_next"],
+                                    batch["goal"], None)
+    assert torch.equal(batch["reward"], want)
+    assert (batch["reward"] == 0).any() and (batch["reward"] == -1).any()
+    rows = [r for r in tr.metrics.history if "rollout_reward" in r]
+    assert all(np.isfinite(v) for r in rows for v in r.values()
+               if isinstance(v, float))
+
+
+def test_tqc_preset_is_tqc_pickandplace():
+    """chip_smoke.py's phase 12 trains PickAndPlace under the TQC preset as
+    the committed tqc_pickandplace run's configuration (the chip machine's
+    copy leaves training/ out): every hyperparameter of that run, and its
+    n_envs and horizon."""
+    path = os.path.join(os.path.dirname(__file__), "..", "training",
+                        "run_data", "round2_classic", "tqc_pickandplace",
+                        "config.json")
+    with open(path) as f:
+        run = json.load(f)
+    hp = Hyperparameters("TQC")
+    for k, v in run["hyperparams"].items():
+        assert getattr(hp, k) == v, k
+    assert (run["n_envs"], run["max_ep_steps"]) == (64, [50])
+    assert run["stages"] == ["pickandplace"]
+
+
 def test_classic_cli(tmp_path, monkeypatch):
     args = ["--task", "push", "--n-envs", "2", "--max-ep-steps", "2",
             "--max-timesteps", "4", "--learning-starts", "2",
@@ -443,8 +489,16 @@ def test_classic_cli(tmp_path, monkeypatch):
                               "--max-ep-steps", "2", "--max-timesteps", "2",
                               "--name", "s", "--device", "cpu"])
     assert slide.learner.act_dim == 3
-    with pytest.raises(NotImplementedError, match="13b"):
-        classic_cli.main(["--task", "stack", "--device", "cpu"])
+    pnp = classic_cli.main(["--task", "pickandplace", "--n-envs", "2",
+                            "--max-ep-steps", "2", "--max-timesteps", "2",
+                            "--name", "p", "--device", "cpu"])
+    assert pnp.learner.act_dim == 4 and pnp.buffer.obs.shape[-1] == 19
+    cfg = json.loads((run.parent / "p" / "config.json").read_text())
+    assert cfg["stages"] == ["pickandplace"] and cfg["control_type"] == "ee"
+    # the reference's defaults (tools/train_classic.py:29-43)
+    assert classic_cli.task_defaults("stack") == ("ee", 100)
+    assert classic_cli.task_defaults("flip") == ("ee", 50)
+    assert classic_cli.task_defaults("mycobotreach") == ("js", 50)
     with pytest.raises(NotImplementedError):
         classic_cli.main(args + ["--device", "cpu", "--algorithm", "TD3",
                                  "--name", "td3"])
