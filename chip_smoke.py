@@ -161,6 +161,39 @@ kernel, built for each chain, for MyCobot and the 9-dof Panda.  Phases, one prog
      (MyCobot's 20 warm substeps at B 64, 4096 and 65536, the 9-dof
      Panda's warm substep with tau_ext at 64, 4096 and 16384); the phase's
      wall time.
+  13. the other learners and population training: PopulationTrainer.learn
+     (4 members of the TQC preset at full width, 64 envs each: the
+     round-5 campaign's pop_rs run, tools/campaign_round5.sh:25-34) on
+     reachao_rand_start_p25, cut to horizon 20 and three rollouts of 64 x
+     20 per member (a collect rollout, then fused rollouts with 8 stacked
+     updates after each env step) and one evaluation; checks: every env
+     step one batched_step of 256 envs with 20 K1 launches, all on the
+     lane-group kernel, the stacked update count, finite losses, the state
+     stacked on the card, the members distinct, the stacked replay on the
+     card, each member's checkpoints; the K1 route held against the plain
+     route on one env step of the population's own actions (phase 7's
+     rule); one stacked update against the CPU and against each member's
+     own update on the card (losses, alpha and gradients rtol 1e-4 / atol
+     1e-6, the members' new state within 1e-5); ms per stacked update at
+     K = 4 beside one member's, ms per collect and fused env step at 256
+     beside one member's at 64, the launches of each, aggregate
+     env-steps/s and the replay's bytes.  TD3 and DDPG through
+     Trainer.learn on Reach at 64 envs (three rollouts of 50, one K1
+     launch per env step), one update each against the CPU, the update's
+     time.  One train_ppo iteration on Reach at the PPO preset (16 envs,
+     n_steps 512, 20 epochs of 128), one launch per env step, then one
+     update against the CPU (the first minibatch's gradients by phase 8's
+     rule; the whole update, 1280 Adam steps that amplify rounding, held
+     against the same update in float64 on the CPU: the card's relative
+     distance from it at most 4x the float32 CPU's).  collect_labeled with
+     the routed generalist on reachao1 (64 episodes of 50 steps, drive
+     noise 0.2; 20 K1 launches per step) and 200 bc_train steps of a
+     TQC-preset student, held by the same float64 rule.  In every update
+     held against the CPU, the actor's gradient is taken on both sides
+     from the same stepped critic and ReLU pattern, and each hidden ReLU
+     input on the other side of 0 on the card must be a tie (|z| <=
+     1e-5).  K1 beside its bound at the population's B = 256 and at 16
+     and 64.
 
 The line before the last is one JSON object with a row per kernel path
 (K1 on each path above); the last line is {"ok": true, "device": {...}}.
@@ -190,6 +223,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -945,6 +979,9 @@ TRAIN_STEPS = 3840
 B_TRAIN = (N_ENVS, 512)
 # the learner on the card against the CPU
 RTOL_LEARN, ATOL_GRAD = 1e-4, 1e-6
+# a hidden ReLU input this close to 0 may take either side on the card and
+# the CPU (fp32 sums of ~256 terms of order 1 round at ~1e-6)
+TIE_Z = 1e-5
 N_UPDATE_TIMED = 50
 
 
@@ -1053,6 +1090,24 @@ def profile_once(fn, label, card):
     return n_launch, busy_us, wall_us
 
 
+def event_times(fn, n=N_UPDATE_TIMED):
+    """ms of fn between two CUDA events, each call alone between two
+    synchronizes, after 5 of warm-up: (median, min, max) over n."""
+    for _ in range(5):
+        fn()
+    ms = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return float(np.median(ms)), min(ms), max(ms)
+
+
 def update_times(trainer, core, card, tag="phase 8"):
     """ms per TQC update (CUDA events around each, the median of 50 after 5
     of warm-up), alone and with its HER sample; one profiled update and one
@@ -1068,23 +1123,9 @@ def update_times(trainer, core, card, tag="phase 8"):
     batch = learner_batch(her.sample(buf, gen, bs, rf))
     noise = learner.update_noise(gen, bs)
 
-    def timed(fn):
-        for _ in range(5):
-            fn()
-        ms = []
-        for _ in range(N_UPDATE_TIMED):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            ms.append(e0.elapsed_time(e1))
-        return float(np.median(ms)), min(ms), max(ms)
-
-    upd = timed(lambda: learner.update(ts, batch, noise))
-    burst = timed(lambda: trainer.update_burst(ts, buf, gen, 1, bs, rf))
+    upd = event_times(lambda: learner.update(ts, batch, noise))
+    burst = event_times(lambda: trainer.update_burst(ts, buf, gen, 1, bs,
+                                                     rf))
     say(f"{tag} TQC update (batch {bs}, net_arch "
         f"{list(learner.net_arch)}, {learner.N_QUANTILES} quantiles x "
         f"{learner.n_critics} critics): median {upd[0]:.3f} ms (min "
@@ -1195,13 +1236,18 @@ def drive_training(CD, dev, card, run_root):
     return counts[CD.LANES], core, times
 
 
-def learner_vs_cpu(trainer, core, card):
+def learner_vs_cpu(trainer, core, card, tag="phase 8"):
     """The trained state copied to the CPU: one HER batch from the same
-    draws on both devices must be equal, and one TQC update from the same
+    draws on both devices must be equal, and one update from the same
     state, batch and noise must agree (losses and alpha rtol 1e-4, every
     gradient rtol 1e-4 and atol 1e-6; gradients, not the new parameters:
     Adam maps each gradient element to about +-lr, so one at the rounding
-    level may flip by 2 lr)."""
+    level may flip by 2 lr).  Each gradient is compared from the same
+    inputs: the actor's, which reads the stepped critic and its own hidden
+    ReLUs, is taken on the card again with the CPU's stepped critic and the
+    CPU's ReLU pattern, and every input of those ReLUs that lies on the
+    other side of 0 on the card must be a tie (|z| <= TIE_Z).  Returns the
+    largest gradient difference."""
     from panda_gym_tpu_torch.rl import her
     from panda_gym_tpu_torch.rl.learners import load_state, make_learner, save_state
     from panda_gym_tpu_torch.rl.train import learner_batch
@@ -1220,35 +1266,78 @@ def learner_vs_cpu(trainer, core, card):
     b_card = her.gather(buf, draws, rf)
     b_cpu = her.gather(buf_cpu, {k: v.cpu() for k, v in draws.items()}, rf)
     same = {k: torch.equal(b_card[k].cpu(), b_cpu[k]) for k in b_card}
-    say(f"phase 8 HER batch of {bs} on the card and on the CPU from the same "
+    say(f"{tag} HER batch of {bs} on the card and on the CPU from the same "
         f"draws: equal {same}")
     if not all(same.values()):
         fail(f"the HER batch differs between the card and the CPU: {same}")
     noise = learner.update_noise(gen, bs)
-    _, m_card = learner.update(ts, learner_batch(b_card), noise)
+    actor0, actor0_cpu = copy.deepcopy(ts.actor), copy.deepcopy(ts_cpu.actor)
+    batch = learner_batch(b_card)
+    _, m_card = learner.update(ts, batch, noise)
     _, m_cpu = cpu.update(ts_cpu, learner_batch(b_cpu),
                           tuple(n.cpu() for n in noise))
     worst = {}
     for k in ("critic_loss", "actor_loss", "alpha"):
-        a, b = float(m_card[k]), float(m_cpu[k])
-        worst[k] = abs(a - b) / max(abs(b), 1e-30)
-    grads = {}
-    for name in ("actor", "critic"):
-        for (n, p), (_, q) in zip(getattr(ts, name).named_parameters(),
-                                  getattr(ts_cpu, name).named_parameters()):
-            grads[f"{name}.{n}"] = (p.grad.cpu(), q.grad)
-    grads["log_alpha"] = (ts.log_alpha.grad.cpu(), ts_cpu.log_alpha.grad)
+        if k in m_cpu:
+            a, b = float(m_card[k]), float(m_cpu[k])
+            worst[k] = abs(a - b) / max(abs(b), 1e-30)
+    grads = {f"critic.{n}": (p.grad.cpu(), q.grad) for (n, p), q in zip(
+        ts.critic.named_parameters(), ts_cpu.critic.parameters())}
+    # The actor's gradient is taken again on the card from the same inputs:
+    # the CPU's stepped critic (Adam may move an element at the rounding
+    # level by +-lr on one device only) and the CPU's ReLU pattern in the
+    # actor's hidden layers (a pre-activation at the rounding level of 0
+    # may take either side; each such flip must be a tie, |z| <= TIE_Z)
+    critic = copy.deepcopy(ts.critic)
+    with torch.no_grad():
+        for p, q in zip(critic.parameters(), ts_cpu.critic.parameters()):
+            p.copy_(q)
+    flips, tie_z, masks = 0, 0.0, []
+    with torch.no_grad():
+        h, h_cpu = batch["x"], learner_batch(b_cpu)["x"]
+        for layer, layer_cpu in zip(actor0.dense[:actor0.n_hidden],
+                                    actor0_cpu.dense[:actor0.n_hidden]):
+            z, z_cpu = layer(h), layer_cpu(h_cpu)
+            flip = (z.cpu() > 0) != (z_cpu > 0)
+            flips += int(flip.sum())
+            if flip.any():
+                tie_z = max(tie_z, z_cpu[flip].abs().max().item())
+            masks.append((z_cpu > 0).to(z.device, z.dtype))
+            h, h_cpu = torch.relu(z), torch.relu(z_cpu)
+
+    def latent(self, x):
+        for layer, m in zip(self.dense[:self.n_hidden], masks):
+            x = layer(x) * m
+        return x
+
+    actor0.latent = types.MethodType(latent, actor0)
+    names, params = zip(*actor0.named_parameters())
+    # alpha as the update used it, exp(log_alpha) before the step
+    g = torch.autograd.grad(learner.actor_loss(
+        actor0, critic, batch["x"], learner.split_noise(noise)[1],
+        m_card.get("alpha"))[0], params)
+    # TD3's delayed actor steps on a zero gradient
+    keep = learner.actor_steps(ts.step - 1)
+    grads.update({f"actor.{n}": (a.cpu() * keep, q.grad) for n, a, q in zip(
+        names, g, ts_cpu.actor.parameters())})
+    if learner.uses_alpha:
+        grads["log_alpha"] = (ts.log_alpha.grad.cpu(), ts_cpu.log_alpha.grad)
     over = {k: int(((a - b).abs() > ATOL_GRAD + RTOL_LEARN * b.abs()).sum())
             for k, (a, b) in grads.items()}
     err = max((a - b).abs().max().item() for a, b in grads.values())
-    say(f"phase 8 one TQC update, card vs CPU: relative differences "
+    name = type(learner).__name__.replace("Learner", "")
+    say(f"{tag} one {name} update, card vs CPU: relative differences "
         f"{ {k: f'{v:.2e}' for k, v in worst.items()} } (rtol {RTOL_LEARN}); "
         f"gradients of {len(grads)} tensors, max |d| {err:.3e}, elements "
-        f"outside rtol {RTOL_LEARN} atol {ATOL_GRAD}: {sum(over.values())} "
-        f"| {card}")
-    if max(worst.values()) > RTOL_LEARN or any(over.values()):
-        fail(f"the TQC update on the card disagrees with the CPU: {worst}, "
-             f"{ {k: v for k, v in over.items() if v} }")
+        f"outside rtol {RTOL_LEARN} atol {ATOL_GRAD}: {sum(over.values())}; "
+        f"{flips} hidden ReLU inputs of the actor on the other side of 0 on "
+        f"the card, the largest |z| among them {tie_z:.2e} (a tie up to "
+        f"{TIE_Z}) | {card}")
+    if (max(worst.values()) > RTOL_LEARN or any(over.values())
+            or tie_z > TIE_Z):
+        fail(f"the {name} update on the card disagrees with the CPU: "
+             f"{worst}, { {k: v for k, v in over.items() if v} }")
+    return err
 
 
 def k1_train_error(CD, core, dev):
@@ -2694,6 +2783,806 @@ def phase12(make_core, _hi_prec, CD, rng, dev, card):
     return cob, grip, train_launches, times
 
 
+# ----------------------------------------------------------------- phase 13
+# population training: the round-5 campaign's pop_rs run
+# (tools/campaign_round5.sh:25-34) at its width, 4 members of the TQC preset
+# ([256, 256], 25 quantiles, 2 critics, batch 256, gSDE) with 64 envs each
+# on its first stage; cut in depth only: horizon 20 for 100, and a
+# per-member budget of three rollouts of 64 x 20 (a collect rollout, then
+# fused ones) with one evaluation at its end
+POP_MEMBERS = 4
+POP_SCENE = "reachao_rand_start_p25"
+POP_STEPS = 3 * N_ENVS * HORIZON
+# TD3 and DDPG through the Trainer on Reach at the trainer's n_envs, the
+# reference's Reach horizon, three rollouts
+REACH_HORIZON = 50
+# one PPO iteration at the PPO preset (rl/config.py): 16 envs, n_steps 512,
+# 20 epochs of minibatches of 128
+PPO_ENVS = 16
+# distillation: the routed generalist labels 64 episodes of reachao1 (a
+# behavioural-cloning round with DART drive noise), then 200 BC steps
+DISTILL_HORIZON = 50
+DISTILL_NOISE = 0.2
+BC_STEPS = 200
+# whole runs of many Adam steps (PPO's 1280, BC's 200) amplify rounding
+# chaotically, so neither device is the other's reference: both are held
+# against the same run in float64 on the CPU, and the card's relative
+# distance from it (the new parameters, the policy's actions on the data,
+# the losses) may be at most RUN_FACTOR times the float32 CPU's, plus
+# RUN_FLOOR
+RUN_FACTOR, RUN_FLOOR = 4.0, 1e-6
+
+
+def pop_config():
+    """The population run's TrainConfig: learning starts and the buffer
+    gate opens after the first rollout; the evaluation falls at the end."""
+    from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
+    cfg = TrainConfig(
+        n_envs=N_ENVS, stages=[POP_SCENE], max_ep_steps=[HORIZON],
+        max_timesteps=POP_STEPS, learning_starts=N_ENVS * HORIZON // 4,
+        interleave_min_buffer=N_ENVS * HORIZON // 4, eval_freq=POP_STEPS,
+        success_thresholds=[2.0], ee_error_thresholds=[0.05],
+        speed_thresholds=[0.5], benchmark_eval_scenes=[])
+    cfg.hyperparams = Hyperparameters("TQC")
+    return cfg
+
+
+def reset_counts(CD, core):
+    motor = core.physics_step_batched.motor
+    motor.launches = 0
+    motor.kernel_launches = {CD.LANES: 0, CD.THREAD: 0}
+    return motor
+
+
+def k1_core_error(CD, core, B, dev, label):
+    """K1 as the core launches it (its substeps, warm or cold) against its
+    plain version on one step's states at batch B: a reset and random
+    actions (a second wrapper, whose launches stay out of the main path's
+    counts).  Returns the largest error."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+
+    motor = core.physics_step_batched.motor
+    twin = CD.make_cuda_motor_steps(core.model, n_substeps=motor.n_substeps,
+                                    dt=motor.dt, ctrl_mode=motor.ctrl_mode,
+                                    warm_start=motor.warm_start)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, _ = core.batched_reset(B, gen)
+    a = torch.rand(B, core.robot.action_dim, generator=gen,
+                   device=dev) * 2.0 - 1.0
+    s_in = _hi_prec(core.robot.set_action)(states, a)
+    x = (s_in.q.contiguous(), s_in.qd.contiguous(),
+         s_in.ctrl_target.contiguous())
+    qk, qdk = twin(*x)
+    qp, qdp = twin.plain(*x)
+    eq = (qk - qp).abs().max().item()
+    eqd = (qdk - qdp).abs().max().item()
+    say(f"{label}: K1 ({motor.n_substeps} substep(s), "
+        f"{'warm' if motor.warm_start else 'cold'}) vs plain at B={B}: "
+        f"max|dq|={eq:.3e} (atol {ATOL_Q}) max|dqd|={eqd:.3e} (atol "
+        f"{ATOL_QD})")
+    if eq > ATOL_Q or eqd > ATOL_QD:
+        fail(f"{label}: K1 disagrees with its plain version")
+    return max(eq, eqd)
+
+
+def run_population(CD, dev, run_root):
+    """PopulationTrainer.learn on the card, every batched_step's batch
+    recorded and K1's counts set to 0 as the env is made, just before the
+    run.  Returns (trainer, core, logged rows, batches, seconds)."""
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+    from panda_gym_tpu_torch.rl.logging_utils import RunLogger
+    from panda_gym_tpu_torch.rl.population import PopulationTrainer
+
+    cfg = pop_config()
+    cores, batches, rows = [], [], []
+
+    def make_env(sc, thr, spd):
+        core = make_reach_ao_core(sc, config=cfg, ee_error_threshold=thr,
+                                  speed_threshold=spd, device=dev.type)
+        step = core.batched_step
+
+        def counted(states, actions):
+            batches.append(actions.shape[0])
+            return step(states, actions)
+
+        core.batched_step = counted
+        reset_counts(CD, core)
+        cores.append(core)
+        return core
+
+    logger = RunLogger(group="chip_smoke", name="phase13", config=cfg,
+                       root=run_root)
+    log = logger.log
+    logger.log = lambda row: (rows.append(row), log(row))
+    pt = PopulationTrainer(cfg, make_env, POP_MEMBERS, logger=logger)
+    t0 = time.perf_counter()
+    pt.learn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    logger.close()
+    del cores[0].batched_step
+    return pt, cores[0], rows, batches, seconds
+
+
+def stacked_vs_cpu_and_members(pt, core, card):
+    """One stacked update of the trained population on the card against
+    the same update on the CPU (the state copied) and against each member's
+    own update on the card (member_slice), from the same state, batch and
+    noise: losses and alpha rtol 1e-4, every gradient rtol 1e-4 / atol
+    1e-6 (phase 8's rule, each gradient from the same inputs: the actor's,
+    which reads the stepped critic, taken again with the other side's); the
+    members' new parameters and moments within atol 1e-5 of the stacked
+    update's (tests/test_population.py's rule).  Returns the batch, the
+    noise and the members, for the times."""
+    from torch.func import vmap
+
+    from panda_gym_tpu_torch.rl import her
+    from panda_gym_tpu_torch.rl.learners import make_learner, named_state
+    from panda_gym_tpu_torch.rl.population import (StackedLearner,
+                                                   member_slice,
+                                                   pop_named_state)
+    from panda_gym_tpu_torch.rl.train import learner_batch, schedule
+
+    cfg, stacked, pop, buf, gen = (pt.config, pt.stacked, pt.pop, pt.buffer,
+                                   pt.generator)
+    L, K = stacked.learner, stacked.K
+    dev = pop.log_alpha.device
+    bs = schedule(cfg, HORIZON).batch_size
+
+    def rf(achieved_next, goal, aux):
+        return core.task.reward_from_aux(core, achieved_next, goal, aux)
+
+    batch = learner_batch(her.gather_stacked(
+        buf, her.draw_stacked(buf, gen, bs), rf))
+    noise = stacked.update_noise(gen, bs)
+    noise_a = L.split_noise(noise)[1]
+    cpu = StackedLearner(make_learner(cfg.algorithm, L.obs_dim, L.act_dim,
+                                      cfg.hyperparams, "cpu"), K)
+    pop_cpu = cpu.init(torch.Generator().manual_seed(0))
+    live = pop_named_state(pop)
+    with torch.no_grad():
+        for k, t in pop_named_state(pop_cpu).items():
+            t.copy_(live[k].cpu())
+    pop_cpu.step = pop.step
+    members = [member_slice(stacked, pop, i) for i in range(K)]
+    actors0 = [copy.deepcopy(ts.actor) for ts in members]
+    actor0 = {k: v.detach().clone() for k, v in pop.actor.items()}
+    alpha = torch.exp(pop.log_alpha.detach())
+    _, m_card = stacked.update(pop, batch, noise)
+    _, m_cpu = cpu.update(pop_cpu, {k: v.cpu() for k, v in batch.items()},
+                          tuple(n.cpu() for n in noise))
+    m_mem = [L.update(members[i], {k: v[i] for k, v in batch.items()},
+                      tuple(n[i] for n in noise))[1] for i in range(K)]
+
+    def stacked_actor_grads(critic):
+        """The stacked actor loss's gradients at the pre-update actor under
+        ``critic`` (stacked leaves on the card)."""
+        pa = {k: v.clone().requires_grad_(True) for k, v in actor0.items()}
+
+        def loss(pa_, pc, x, n, al):
+            nets = stacked._nets(actor=pa_, critic=pc)
+            return L.actor_loss(nets.actor, nets.critic, x, n, al)[0]
+
+        total = vmap(loss, in_dims=(0, 0, 0, None if noise_a is None
+                                    else 0, 0))(
+            pa, critic, batch["x"], noise_a, alpha).sum()
+        return dict(zip(pa, torch.autograd.grad(total, list(pa.values()))))
+
+    def over(a, b):
+        return int(((a - b).abs() > ATOL_GRAD + RTOL_LEARN * b.abs()).sum())
+
+    rel = lambda a, b: (a - b).abs().max().item() / max(  # noqa: E731
+        b.abs().max().item(), 1e-30)
+    m_keys = ("critic_loss", "actor_loss", "alpha")
+    # the card against the CPU
+    g_card = {f"critic/{k}": v.grad for k, v in pop.critic.items()}
+    g_card["log_alpha"] = pop.log_alpha.grad
+    g_card.update({f"actor/{k}": v for k, v in stacked_actor_grads(
+        {k: v.to(dev) for k, v in pop_cpu.critic.items()}).items()})
+    g_cpu = {f"critic/{k}": v.grad for k, v in pop_cpu.critic.items()}
+    g_cpu["log_alpha"] = pop_cpu.log_alpha.grad
+    g_cpu.update({f"actor/{k}": v.grad for k, v in pop_cpu.actor.items()})
+    worst_cpu = max(rel(m_card[k].cpu(), m_cpu[k]) for k in m_keys)
+    n_cpu = sum(over(g_card[k].cpu(), g_cpu[k]) for k in g_cpu)
+    err_cpu = max((g_card[k].cpu() - g_cpu[k]).abs().max().item()
+                  for k in g_cpu)
+    # the stacked update against each member's own, on the card
+    worst_mem, n_mem, err_mem, par_mem = 0.0, 0, 0.0, 0.0
+    after = pop_named_state(pop)
+    for i, ts in enumerate(members):
+        worst_mem = max([worst_mem] + [rel(m_card[k][i], m_mem[i][k])
+                                       for k in m_keys])
+        critic = copy.deepcopy(ts.critic)
+        with torch.no_grad():
+            for (n, p) in critic.named_parameters():
+                p.copy_(pop.critic[n][i])
+        names, params = zip(*actors0[i].named_parameters())
+        g = torch.autograd.grad(L.actor_loss(
+            actors0[i], critic, batch["x"][i], noise_a[i], alpha[i])[0],
+            params)
+        mine = {f"critic/{n}": p.grad for n, p in ts.critic.named_parameters()}
+        mine["log_alpha"] = ts.log_alpha.grad
+        mine.update({f"actor/{n}": a for n, a in zip(names, g)})
+        for k, gm in mine.items():
+            gs = (pop.log_alpha.grad[i] if k == "log_alpha" else
+                  getattr(pop, k.split("/")[0])[k.split("/", 1)[1]].grad[i])
+            n_mem += over(gs, gm)
+            err_mem = max(err_mem, (gs - gm).abs().max().item())
+        for k, t in named_state(ts).items():
+            if not k.endswith("/step"):
+                par_mem = max(par_mem, (after[k][i] - t).abs().max().item())
+    say(f"phase 13 one stacked TQC update of {K} members, card vs CPU: "
+        f"losses and alpha relative difference {worst_cpu:.2e} (rtol "
+        f"{RTOL_LEARN}), gradients max |d| {err_cpu:.3e}, {n_cpu} elements "
+        f"outside rtol {RTOL_LEARN} atol {ATOL_GRAD} | {card}")
+    say(f"phase 13 the stacked update vs each member's own update on the "
+        f"card: losses and alpha {worst_mem:.2e}, gradients max |d| "
+        f"{err_mem:.3e} ({n_mem} elements outside), new parameters and Adam "
+        f"moments max |d| {par_mem:.3e} (atol 1e-5) | {card}")
+    if (worst_cpu > RTOL_LEARN or n_cpu or worst_mem > RTOL_LEARN or n_mem
+            or par_mem > 1e-5):
+        fail("phase 13: the stacked update disagrees with the CPU or with "
+             "the members' own updates")
+    return batch, noise, members
+
+
+def population_times(CD, pt, core, batch, noise, members, seconds, card):
+    """ms per stacked update at K = 4 beside one member's update (CUDA
+    events, median of 50), the launches of each (one profile); ms per
+    collect and per fused env step at B = K * n_envs beside one member's
+    env step at n_envs, K1's launches and all launches of each (one
+    profile); aggregate env-steps/s; the replay bytes."""
+    from panda_gym_tpu_torch.rl.train import VectorEnv, schedule
+
+    stacked, pop, buf, gen = pt.stacked, pt.pop, pt.buffer, pt.generator
+    L, K = stacked.learner, stacked.K
+    sched = schedule(pt.config, HORIZON)
+    b0 = {k: v[0] for k, v in batch.items()}
+    n0 = tuple(n[0] for n in noise)
+    upd = event_times(lambda: stacked.update(pop, batch, noise))
+    one = event_times(lambda: L.update(members[0], b0, n0))
+    say(f"phase 13 stacked TQC update at K={K} (batch {sched.batch_size} "
+        f"per member): median {upd[0]:.3f} ms (min {upd[1]:.3f}, max "
+        f"{upd[2]:.3f}); one member's update {one[0]:.3f} ms (min "
+        f"{one[1]:.3f}, max {one[2]:.3f}); {upd[0] / one[0]:.2f}x for "
+        f"{K}x the work | {card}")
+    n_upd, _, _ = profile_once(lambda: stacked.update(pop, batch, noise),
+                               f"phase 13 profile of one stacked update "
+                               f"(K={K})", card)
+    n_one, _, _ = profile_once(lambda: L.update(members[0], b0, n0),
+                               "phase 13 profile of one member's update",
+                               card)
+    rf = lambda a, g, x: core.task.reward_from_aux(core, a, g, x)  # noqa
+
+    def stepper(learner, ts, B):
+        venv = VectorEnv(core, B, HORIZON)
+        states, obs = venv.batch_reset(gen)
+        done = torch.zeros(B, dtype=torch.bool, device=states.q.device)
+        ep_len = torch.zeros(B, dtype=torch.int32, device=states.q.device)
+        expl = venv._sample_expl(learner, ts, gen)
+        return lambda: venv.env_step(learner, ts, states, obs, done, ep_len,
+                                     gen, False, expl)
+
+    B = K * N_ENVS
+    pop_step = stepper(stacked, pop, B)
+    one_step = stepper(L, members[0], N_ENVS)
+
+    def fused():
+        pop_step()
+        pt.update_burst(pop, buf, gen, sched.n_upd_per_step,
+                        sched.batch_size, rf)
+
+    res = {}
+    for name, fn in (("population collect", pop_step),
+                     (f"population fused ({sched.n_upd_per_step} stacked "
+                      f"updates after it)", fused),
+                     ("one member's collect", one_step)):
+        fn()
+        ms = []
+        for _ in range(N_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        res[name] = float(np.median(ms))
+        say(f"phase 13 {name} env step: median {res[name]:.1f} ms (min "
+            f"{min(ms):.1f}, max {max(ms):.1f}) over {N_TIMED} | {card}")
+    k1 = {}
+    for name, fn in (("population", pop_step), ("member", one_step)):
+        motor = reset_counts(CD, core)
+        fn()
+        torch.cuda.synchronize()
+        k1[name] = {KERNEL_NAMES[k]: v
+                    for k, v in motor.kernel_launches.items()}
+    n_pop, busy_pop, wall_pop = profile_once(
+        pop_step, f"phase 13 profile of one population env step at B={B}",
+        card)
+    n_mem, busy_mem, wall_mem = profile_once(
+        one_step, f"phase 13 profile of one member's env step at "
+                  f"B={N_ENVS}", card)
+    fused_ms = res[[k for k in res if k.startswith("population fused")][0]]
+    say(f"phase 13 launches per env step: {n_pop} for the population's "
+        f"{K} x {N_ENVS} envs (K1: {k1['population']}) against {n_mem} for "
+        f"one member's {N_ENVS} (K1: {k1['member']}), {n_pop / n_mem:.2f}x;"
+        f" card busy {100 * busy_pop / wall_pop:.1f}% and "
+        f"{100 * busy_mem / wall_mem:.1f}%; per update: {n_upd} stacked "
+        f"against {n_one} for one member ({n_upd / n_one:.2f}x) | {card}")
+    if k1["population"] != {KERNEL_NAMES[CD.LANES]: N_SUBSTEPS,
+                            KERNEL_NAMES[CD.THREAD]: 0}:
+        fail(f"phase 13: K1 launches of one population env step were "
+             f"{k1['population']}")
+    say(f"phase 13 aggregate: {B / fused_ms * 1e3:.0f} env-steps/s over the "
+        f"members in fused rollouts ({B} envs per {fused_ms:.1f} ms step); "
+        f"the whole run {pt.timesteps} env steps in {seconds:.2f} s, "
+        f"{pt.timesteps / seconds:.1f} env-steps/s (evaluation, checkpoints "
+        f"and set-up included); stacked replay {buf.nbytes} bytes "
+        f"({buf.nbytes / 2 ** 20:.1f} MiB: {K} x {buf.capacity} episodes of "
+        f"{buf.ep_horizon} steps) | {card}")
+
+
+def drive_population(CD, dev, card, run_root):
+    """Phase 13's population path: the run and its checks, K1's route held
+    against the plain route on one env step of the population's own
+    actions (phase 7's rule), the stacked update against the CPU and the
+    members, then the times.  Returns (K1 launches, the largest K1 error,
+    the core)."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.rl.population import pop_named_state
+    from panda_gym_tpu_torch.rl.train import flat_x, schedule, stage_tag
+
+    pt, core, rows, batches, seconds = run_population(CD, dev, run_root)
+    motor = core.physics_step_batched.motor
+    counts = dict(motor.kernel_launches)
+    cfg, pop, buf = pt.config, pt.pop, pt.buffer
+    B = POP_MEMBERS * N_ENVS
+    sched = schedule(cfg, HORIZON)
+    roll = [r for r in rows if "rollout_success" in r]
+    fused = [r for r in roll if "critic_loss" in r]
+    evals = [r for r in rows if "eval_success" in r]
+    named = pop_named_state(pop)
+    run_dir = os.path.join(run_root, "chip_smoke", "phase13")
+    ckpts = [f"best_model_m{i}.ckpt" for i in range(POP_MEMBERS)] + [
+        f"model_{stage_tag(POP_SCENE)}_0_m{i}.ckpt"
+        for i in range(POP_MEMBERS)]
+    a = pop.actor["dense.0.weight"]
+    checks = {
+        f"one batched_step of {B} envs per env step": set(batches) == {B},
+        "K1: 20 launches per env step, all on the lane-group kernel":
+            counts == {CD.LANES: N_SUBSTEPS * len(batches), CD.THREAD: 0}
+            and motor.launches == N_SUBSTEPS * len(batches),
+        "the env steps of every rollout and the evaluation":
+            len(batches) == HORIZON * (len(roll) + len(evals)),
+        "a collect rollout, then two or more fused":
+            "critic_loss" not in roll[0] and len(fused) >= 2
+            and len(roll) - len(fused) >= 1,
+        "one evaluation of every member": len(evals) == 1
+            and len(evals[0]["eval_success"]) == POP_MEMBERS,
+        "stacked updates: the schedule's count":
+            pop.step == len(fused) * HORIZON * sched.n_upd_per_step,
+        "losses and alpha finite": all(
+            np.isfinite(r[k]) for r in fused
+            for k in ("critic_loss", "actor_loss", "alpha")),
+        "state finite, stacked, on the card": a.shape[0] == POP_MEMBERS
+            and all(bool(torch.isfinite(v).all()) for v in named.values())
+            and all(v.device.type == "cuda" for k, v in named.items()
+                    if not k.endswith("/step")),
+        "members differ": not torch.equal(a[0], a[1]),
+        "stacked replay (K, E, ...) on the card": buf.members == POP_MEMBERS
+            and buf.capacity == sched.capacity
+            and buf.obs.device.type == "cuda",
+        "member checkpoints": all(os.path.exists(os.path.join(run_dir, c))
+                                  for c in ckpts),
+    }
+    say(f"phase 13 main path: PopulationTrainer.learn, {POP_MEMBERS} "
+        f"members x {N_ENVS} envs on {POP_SCENE}, horizon {HORIZON}: "
+        f"{len(roll)} rollouts ({len(roll) - len(fused)} collect, "
+        f"{len(fused)} fused with {sched.n_upd_per_step} stacked updates per"
+        f" env step) and {len(evals)} evaluation rollout: {len(batches)} "
+        f"batched_step calls at B={sorted(set(batches))}, K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, {pop.step} "
+        f"stacked updates, {pt.timesteps} transitions over the members, "
+        f"eval success {evals[0]['eval_success'] if evals else None}, "
+        f"checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 13 population checks failed: {checks}")
+
+    # the two motor routes on one env step of the population's own actions
+    phys = core.physics_step_batched
+    twin = CD.make_cuda_motor_steps(core.model, n_substeps=1, dt=DT,
+                                    ctrl_mode=phys.motor.ctrl_mode,
+                                    warm_start=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = core.batched_reset(B, gen)
+    act = pt.stacked.act(pop, flat_x(obs), deterministic=True)
+    s_in = _hi_prec(core.robot.set_action)(states, act)
+    cmp, one = copy.copy(phys), copy.copy(phys)
+    cmp.motor = one.motor = twin
+    one.n_substeps = 1
+    err, _ = hold_routes(cmp, one, CD, s_in, f"phase 13 {POP_SCENE} B={B}",
+                         dev, card)
+    batch, noise, members = stacked_vs_cpu_and_members(pt, core, card)
+    population_times(CD, pt, core, batch, noise, members, seconds, card)
+    return counts[CD.LANES], err, core
+
+
+def drive_td3_ddpg(CD, dev, card, run_root):
+    """TD3 and DDPG through Trainer.learn on Reach at n_envs 64 and their
+    presets (three rollouts of horizon 50: a collect rollout and its burst,
+    then fused rollouts; one evaluation), K1's counts set to 0 as the env is
+    made; checks, one update on the card against the CPU, the update's
+    time.  Returns {algorithm: (K1 launches, the largest error)}."""
+    from panda_gym_tpu_torch.envs.panda_tasks import make_core
+    from panda_gym_tpu_torch.rl import her
+    from panda_gym_tpu_torch.rl.config import Hyperparameters, TrainConfig
+    from panda_gym_tpu_torch.rl.train import learner_batch, schedule
+
+    out = {}
+    steps = N_ENVS * REACH_HORIZON
+    for algo in ("TD3", "DDPG"):
+        cfg = TrainConfig(
+            algorithm=algo, n_envs=N_ENVS, stages=["reach"],
+            max_ep_steps=[REACH_HORIZON], max_timesteps=3 * steps,
+            learning_starts=steps, interleave_min_buffer=steps // 2,
+            eval_freq=3 * steps, n_eval_episodes=N_ENVS,
+            success_thresholds=[2.0], ee_error_thresholds=[0.05],
+            benchmark_eval_scenes=[])
+        cfg.hyperparams = Hyperparameters(algo)
+        trainer, core, seconds = run_trainer(
+            cfg, dev, run_root, CD, build=lambda sc: make_core(sc),
+            name=f"phase13_{algo}")
+        motor = core.physics_step_batched.motor
+        counts = dict(motor.kernel_launches)
+        sched = schedule(cfg, REACH_HORIZON)
+        rows = [r for r in trainer.metrics.history if "rollout_reward" in r]
+        fused = [r for r in rows if "critic_loss" in r
+                 and r["t_update"] == 0.0]
+        burst = [r for r in rows if r["t_update"] > 0.0]
+        n_evals = sum("eval_success" in r for r in trainer.metrics.history)
+        env_steps = REACH_HORIZON * (len(rows) + n_evals)
+        metrics = [v for r in rows for k, v in r.items()
+                   if k in ("critic_loss", "actor_loss")]
+        checks = {
+            f"{algo}Learner": type(trainer.learner).__name__
+            == f"{algo}Learner",
+            "K1: one 20-substep launch per env step, on the lane-group "
+            "kernel": counts == {CD.LANES: env_steps, CD.THREAD: 0},
+            "a burst and fused rollouts": len(burst) >= 1 and len(fused) >= 1,
+            "updates: the schedule's count": trainer.ts.step == (
+                len(burst) * sched.updates_per_rollout
+                + len(fused) * REACH_HORIZON * sched.n_upd_per_step),
+            "losses finite, no alpha": bool(metrics) and all(
+                np.isfinite(v) for v in metrics)
+            and not any("alpha" in r for r in rows),
+            "buffer on cuda": trainer.buffer.obs.device.type == "cuda",
+        }
+        say(f"phase 13 main path: Trainer.learn with {algo} on reach at "
+            f"n_envs={N_ENVS}, horizon {REACH_HORIZON}: {len(rows)} "
+            f"rollouts, {n_evals} evaluation(s), {env_steps} env steps, K1 "
+            f"launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+            f"{trainer.ts.step} updates in {seconds:.2f} s, checks {checks}")
+        if not all(checks.values()):
+            fail(f"phase 13 {algo} checks failed: {checks}")
+        err = learner_vs_cpu(trainer, core, card, tag=f"phase 13 {algo}")
+        learner = trainer.learner
+        batch = learner_batch(her.sample(
+            trainer.buffer, trainer.generator, sched.batch_size,
+            trainer._reward_fn(core)))
+        noise = learner.update_noise(trainer.generator, sched.batch_size)
+        upd = event_times(lambda: learner.update(trainer.ts, batch, noise))
+        coll = [r["t_collect"] * 1e3 / REACH_HORIZON
+                for r in rows if r not in fused]
+        say(f"phase 13 {algo} update (batch {sched.batch_size}, net_arch "
+            f"{list(learner.net_arch)}, {learner.n_critics} critic(s)): "
+            f"median {upd[0]:.3f} ms (min {upd[1]:.3f}, max {upd[2]:.3f}); "
+            f"collect env step at B={N_ENVS}: "
+            f"{', '.join(f'{m:.2f}' for m in coll)} ms | {card}")
+        out[algo] = (counts[CD.LANES],
+                     max(err, k1_core_error(CD, core, N_ENVS, dev,
+                                            f"phase 13 {algo}")))
+    return out
+
+
+def copy_ppo_state(src, dst):
+    """Every tensor of one PPOState into another, in place."""
+    with torch.no_grad():
+        for m, o in (("actor", "actor_opt"), ("value", "value_opt")):
+            for p, q in zip(getattr(src, m).parameters(),
+                            getattr(dst, m).parameters()):
+                q.copy_(p)
+                so, do = getattr(src, o).state[p], getattr(dst, o).state[q]
+                for k in so:
+                    do[k].copy_(so[k])
+    dst.step = src.step
+
+
+def to_float64(modules, opts=()):
+    """Modules and their Adams' moments in float64, in place."""
+    for m in modules:
+        m.double()
+    for opt in opts:
+        for st in opt.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = st[k].double()
+
+
+def rel_dist(a, b):
+    """||a - b|| / ||b|| over lists of tensors, on the CPU in float64."""
+    num = sum(float(((x.detach().cpu().double() - y.detach().cpu().double())
+                     ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y.detach().cpu().double() ** 2).sum()) for y in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def referee64(label, card_run, cpu_run, ref_run, card):
+    """Hold a whole run on the card against the CPU by the float64 run:
+    each entry of the dicts (a list of tensors) is the run's result; fails
+    unless the card's relative distance from float64 is at most RUN_FACTOR
+    times the float32 CPU's plus RUN_FLOOR."""
+    parts, ok = [], True
+    for k in ref_run:
+        dc = rel_dist(card_run[k], ref_run[k])
+        dp = rel_dist(cpu_run[k], ref_run[k])
+        ok &= dc <= RUN_FACTOR * dp + RUN_FLOOR
+        parts.append(f"{k} {dc:.2e} (CPU {dp:.2e})")
+    say(f"{label}, relative distance from the float64 run on the CPU, card "
+        f"(float32 CPU): {'; '.join(parts)}; allowed {RUN_FACTOR}x the "
+        f"CPU's + {RUN_FLOOR} | {card}")
+    if not ok:
+        fail(f"{label}: the card is further from the float64 run than the "
+             f"CPU allows")
+
+
+def drive_ppo(CD, dev, card):
+    """One train_ppo iteration on Reach at the PPO preset, K1's counts set
+    to 0 just before; checks; then a rollout of the trained state and one
+    update on the card against the CPU from the same state, rollout and
+    permutations: the first minibatch's gradients by phase 8's rule, and
+    the whole update (1280 Adam steps) against the same update in float64
+    on the CPU (referee64: the new parameters, the policy's mean actions
+    on the rollout, the metrics).  Returns (K1
+    launches, the largest error)."""
+    from panda_gym_tpu_torch.envs.panda_tasks import make_core
+    from panda_gym_tpu_torch.rl.config import Hyperparameters
+    from panda_gym_tpu_torch.rl.ppo import (PPOLearner, collect_rollout,
+                                            train_ppo)
+
+    hp = Hyperparameters("PPO")
+    core = make_core("reach")
+    motor = reset_counts(CD, core)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    learner, ts, hist = train_ppo(core, hp, total_steps=hp.n_steps * PPO_ENVS,
+                                  n_envs=PPO_ENVS, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(motor.kernel_launches)
+    checks = {
+        "one iteration": len(hist) == 1 and ts.step == 1,
+        "K1: one launch per env step, on the lane-group kernel":
+            counts == {CD.LANES: hp.n_steps, CD.THREAD: 0},
+        "metrics finite": all(np.isfinite(v) for v in hist[0].values()),
+        "state on cuda": next(ts.actor.parameters()).device.type == "cuda",
+    }
+    say(f"phase 13 main path: train_ppo on reach, one iteration of "
+        f"{hp.n_steps} steps x {PPO_ENVS} envs, {hp.n_epochs} epochs of "
+        f"minibatches of {hp.batch_size}: K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, metrics "
+        f"{ {k: round(v, 5) for k, v in hist[0].items()} }, {seconds:.2f} s,"
+        f" checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 13 PPO checks failed: {checks}")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = core.batched_reset(PPO_ENVS, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, obs, rollout, _ = collect_rollout(core, learner, ts, states, obs,
+                                              gen, hp.n_steps)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    N = rollout["x"].shape[0]
+    perms = learner.update_perms(gen, N)
+    cpu = PPOLearner(learner.obs_dim, learner.act_dim, hp, "cpu")
+    ts_cpu = cpu.init(torch.Generator().manual_seed(0))
+    ts64 = cpu.init(torch.Generator().manual_seed(0))
+    to_float64((ts64.actor, ts64.value), (ts64.actor_opt, ts64.value_opt))
+    copy_ppo_state(ts, ts_cpu)
+    copy_ppo_state(ts, ts64)
+    ro_cpu = {k: v.cpu() for k, v in rollout.items()}
+
+    # the first minibatch's gradients, from the same state
+    adv = rollout["adv"]
+    idx = perms[0, :hp.batch_size]
+    mb = dict(rollout, adv=(adv - adv.mean()) / (adv.std(unbiased=False)
+                                                 + 1e-8))
+    mb = {k: v[idx] for k, v in mb.items()}
+    params = list(ts.actor.parameters()) + list(ts.value.parameters())
+    params_cpu = (list(ts_cpu.actor.parameters())
+                  + list(ts_cpu.value.parameters()))
+    g = torch.autograd.grad(learner.loss(ts, mb)[0], params)
+    g_cpu = torch.autograd.grad(
+        cpu.loss(ts_cpu, {k: v.cpu() for k, v in mb.items()})[0], params_cpu)
+    n_over = sum(int(((a.cpu() - b).abs()
+                      > ATOL_GRAD + RTOL_LEARN * b.abs()).sum())
+                 for a, b in zip(g, g_cpu))
+    g_err = max((a.cpu() - b).abs().max().item() for a, b in zip(g, g_cpu))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m_card = learner.update(ts, rollout, perms)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    _, m_cpu = cpu.update(ts_cpu, ro_cpu, perms.cpu())
+    _, m64 = cpu.update(ts64, {k: v.double() for k, v in ro_cpu.items()},
+                        perms.cpu())
+    n_steps = perms.shape[0] * (N // hp.batch_size)
+    say(f"phase 13 PPO, card vs CPU: the first minibatch's gradients max "
+        f"|d| {g_err:.3e}, {n_over} elements outside rtol {RTOL_LEARN} atol "
+        f"{ATOL_GRAD} | {card}")
+    if n_over:
+        fail("phase 13: the PPO gradients on the card disagree with the CPU")
+
+    def result(learner_, ts_, x, metrics):
+        return dict(
+            parameters=list(ts_.actor.parameters())
+            + list(ts_.value.parameters()),
+            actions=[learner_.act(ts_, x, deterministic=True)],
+            metrics=[torch.tensor([float(metrics[k])
+                                   for k in sorted(metrics)])])
+
+    card_run = result(learner, ts, rollout["x"], m_card)
+    cpu_run = result(cpu, ts_cpu, ro_cpu["x"], m_cpu)
+    ref_run = result(cpu, ts64, ro_cpu["x"].double(), m64)
+    referee64(f"phase 13 PPO, the whole update ({n_steps} minibatch steps)",
+              card_run, cpu_run, ref_run, card)
+    say(f"phase 13 PPO times: rollout {collect_s * 1e3 / hp.n_steps:.2f} ms "
+        f"per env step at B={PPO_ENVS} (policy, step, value, one reset of "
+        f"the batch); update {update_s:.2f} s for {n_steps} minibatch steps "
+        f"({update_s * 1e3 / n_steps:.2f} ms each); the iteration "
+        f"{seconds:.2f} s | {card}")
+    return counts[CD.LANES], max(g_err, k1_core_error(CD, core, PPO_ENVS,
+                                                      dev, "phase 13 PPO"))
+
+
+def drive_distill(CD, root, dev, card):
+    """Distillation: collect_labeled with the routed generalist (the
+    controller its router picks most on reachao1's first observations) as
+    the teacher, 64 episodes of reachao1 with DART drive noise, K1's counts
+    set to 0 just before; checks; K1 against its plain version on the
+    first step's states; then BC_STEPS of bc_train of a TQC-preset student
+    on the card, the CPU and in float64 on the CPU from the same initial
+    student and numpy index stream, held by referee64.  Returns (K1
+    launches, the largest error)."""
+    from panda_gym_tpu_torch.envs.core import _hi_prec
+    from panda_gym_tpu_torch.eval.cli import make_core_fn
+    from panda_gym_tpu_torch.eval.router import (load_routed_policy,
+                                                 masked_bayesian_fusion,
+                                                 member_mean_std)
+    from panda_gym_tpu_torch.rl.config import Hyperparameters
+    from panda_gym_tpu_torch.rl.distill import (bc_train, collect_labeled,
+                                                init_student)
+    from panda_gym_tpu_torch.rl.learners import make_learner
+    from panda_gym_tpu_torch.rl.logging_utils import load_config
+    from panda_gym_tpu_torch.rl.train import flat_x
+
+    asset = os.path.join(root, "panda_gym_tpu_torch", "assets", "routed_gen")
+    policy, _ = load_routed_policy(os.path.join(asset, "routed_policy.npz"),
+                                   dev)
+    core = make_core_fn(load_config(os.path.join(asset, "config.json")),
+                        dev)("reachao1")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = core.batched_reset(EVAL_EPISODES, gen)
+    choice = int(torch.mode(torch.argmax(policy.router(flat_x(obs)),
+                                         -1)).values)
+    mask = policy.masks[choice]
+    a0 = masked_bayesian_fusion(*member_mean_std(policy.members,
+                                                 flat_x(obs)), mask)
+    s_in = _hi_prec(core.robot.set_action)(states, a0)
+    motor = reset_counts(CD, core)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X, A, active = collect_labeled(core, policy.members, mask,
+                                   EVAL_EPISODES, DISTILL_HORIZON, gen,
+                                   drive_noise=DISTILL_NOISE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(motor.kernel_launches)
+    checks = {
+        "K1: 20 launches per env step, on the lane-group kernel":
+            counts == {CD.LANES: N_SUBSTEPS * DISTILL_HORIZON,
+                       CD.THREAD: 0},
+        "shapes": tuple(X.shape) == (DISTILL_HORIZON, EVAL_EPISODES, 62)
+            and tuple(A.shape) == (DISTILL_HORIZON, EVAL_EPISODES, 7),
+        "finite labels in [-1, 1]": bool(torch.isfinite(A).all())
+            and bool((A.abs() <= 1).all()),
+        "every episode active at its first step": bool(active[0].all()),
+    }
+    say(f"phase 13 main path: collect_labeled, the routed generalist's "
+        f"controller {choice} ({int(mask.sum())} members) labelling "
+        f"{EVAL_EPISODES} episodes of reachao1, horizon {DISTILL_HORIZON}, "
+        f"drive noise {DISTILL_NOISE}: {int(active.sum())} labelled states,"
+        f" K1 launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+        f"{seconds * 1e3 / DISTILL_HORIZON:.1f} ms per env step, checks "
+        f"{checks} | {card}")
+    if not all(checks.values()):
+        fail(f"phase 13 distillation checks failed: {checks}")
+    err = k1_eval_error(CD, core, s_in, "phase 13 K1 n_substeps=1 cold vs "
+                                        "plain on a labelling step's states")
+
+    hp = Hyperparameters("TQC")
+    Xa, Aa = X[active], A[active]
+    learner = make_learner("TQC", Xa.shape[1], Aa.shape[1], hp, dev)
+    student = init_student(learner, torch.Generator(device=dev)
+                           .manual_seed(SEED))
+    cpu = make_learner("TQC", Xa.shape[1], Aa.shape[1], hp, "cpu")
+    student_cpu = init_student(cpu, torch.Generator().manual_seed(0))
+    student64 = init_student(cpu, torch.Generator().manual_seed(0))
+    to_float64([student64])
+    init = {k: v.cpu() for k, v in student.state_dict().items()}
+    student_cpu.load_state_dict(init)
+    student64.load_state_dict(init)
+    with torch.no_grad():
+        loss0 = float(torch.mean((torch.tanh(student(Xa)[0]) - Aa) ** 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = bc_train(student, Xa, Aa, steps=BC_STEPS, seed=SEED,
+                       log=lambda s: None)
+    bc_s = time.perf_counter() - t0
+    X_cpu, A_cpu = Xa.cpu(), Aa.cpu()
+    _, loss_cpu = bc_train(student_cpu, X_cpu, A_cpu, steps=BC_STEPS,
+                           seed=SEED, log=lambda s: None)
+    _, loss64 = bc_train(student64, X_cpu.double(), A_cpu.double(),
+                         steps=BC_STEPS, seed=SEED, log=lambda s: None)
+    say(f"phase 13 bc_train, {BC_STEPS} steps on {Xa.shape[0]} labelled "
+        f"states (batch {min(4096, Xa.shape[0])}): loss {loss0:.5f} -> "
+        f"{loss:.5f} on the card, {loss_cpu:.5f} on the CPU, {loss64:.5f} "
+        f"in float64; {bc_s * 1e3 / BC_STEPS:.2f} ms per step on the card "
+        f"| {card}")
+    if not loss < loss0:
+        fail("phase 13: bc_train did not lower the loss")
+    with torch.no_grad():
+        runs = [dict(parameters=list(m.parameters()),
+                     actions=[torch.tanh(m(x)[0])],
+                     loss=[torch.tensor([lv])])
+                for m, x, lv in ((student, Xa, loss),
+                                 (student_cpu, X_cpu, loss_cpu),
+                                 (student64, X_cpu.double(), loss64))]
+    referee64(f"phase 13 bc_train, {BC_STEPS} steps", *runs, card)
+    return counts[CD.LANES], err
+
+
+def phase13(CD, root, rng, dev, card):
+    """Phase 13; returns what the kernels line needs."""
+    t0 = time.perf_counter()
+    mark = lambda what: say(  # noqa: E731
+        f"phase 13 {what} at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as run_root:
+        pop = drive_population(CD, dev, card, run_root)
+        mark("population done")
+        off = drive_td3_ddpg(CD, dev, card, run_root)
+        mark("TD3 and DDPG done")
+    ppo = drive_ppo(CD, dev, card)
+    mark("PPO done")
+    distill = drive_distill(CD, root, dev, card)
+    mark("distillation done")
+    from panda_gym_tpu_torch.models.panda import make_panda_model
+    model = make_panda_model()
+    pop_times, _ = k1_one_substep_times(CD, model, rng, dev, card,
+                                        [POP_MEMBERS * N_ENVS], "phase 13")
+    k1 = reach_k1(CD, model, 0)
+    reach_times = {}
+    for B in (PPO_ENVS, N_ENVS):
+        q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
+        reach_times[B] = (time_k1(k1, model, 0, B, rng, dev),
+                          time_cuda(lambda: k1.plain(q, qd, tgt), 1,
+                                    warmup=1))
+        say(f"phase 13 K1 20 warm substeps B={B}: {reach_times[B][0]:.4f} "
+            f"ms/launch; plain version {reach_times[B][1]:.1f} ms | {card}")
+    say(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+    return pop, pop_times, off, ppo, distill, reach_times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", metavar="ROOT",
@@ -2892,6 +3781,10 @@ def main():
     cob, grip, pnp_train_launches, chain_times = phase12(
         make_core, _hi_prec, CD, rng, dev, card)
 
+    # --------------------------------------------------------------- 13
+    pop, pop_times, off, ppo, distill, reach_times = phase13(CD, root, rng,
+                                                             dev, card)
+
     def bound_by(ops, bytes_per_env=K1_BYTES):
         return ("operations" if float(ops) / PEAK_FP32_OPS
                 > bytes_per_env / PEAK_BYTES else "bytes")
@@ -2981,6 +3874,24 @@ def main():
         f"with tau_ext on the PickAndPlace training path (Trainer at n_envs "
         f"{N_ENVS}) (B={N_ENVS})", pnp_train_launches,
         grip["pickandplace", N_ENVS][1], *g_times[N_ENVS], g_ops, g_bytes))
+    B_POP = POP_MEMBERS * N_ENVS
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the population path "
+        f"(PopulationTrainer, {POP_MEMBERS} TQC members x {N_ENVS} envs on "
+        f"{POP_SCENE}), {KERNEL_NAMES[CD.LANES]} (B={B_POP})", pop[0],
+        pop[1], *pop_times[B_POP], ao_ops))
+    paths = [(f"the {algo} training path (Trainer on Reach)", off[algo],
+              N_ENVS) for algo in off]
+    paths.append(("the PPO path (train_ppo on Reach)", ppo, PPO_ENVS))
+    for what, (n, e), B in paths:
+        rows.append(k1_row(
+            f"K1 motor_steps_lanes_kernel, 20 warm substeps on {what} "
+            f"(B={B})", n, e, *reach_times[B], k1_bound_ms(n_ops, B), n_ops))
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the distillation path "
+        f"(collect_labeled with the routed generalist on reachao1), "
+        f"{KERNEL_NAMES[CD.LANES]} (B={EVAL_EPISODES})", distill[0],
+        distill[1], *tr_times[EVAL_EPISODES], ao_ops))
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,7 @@
 """Training entry point of the port for the classic panda-gym tasks, the
 counterpart of tools/train_classic.py: TQC/SAC + HER on a sparse-reward
 Reach, Push, Slide, PickAndPlace, Stack, Flip or MyCobotReach with the same
-Trainer as the ReachAO curriculum.
+Trainer as the ReachAO curriculum (TD3 and DDPG with ``--algorithm``).
 
     python -m panda_gym_tpu_torch.rl.classic_cli --task push \\
         --max-timesteps 1000000 --n-envs 64 --group classic_campaign
@@ -9,8 +9,7 @@ Trainer as the ReachAO curriculum.
 Options keep tools/train_classic.py's names, and their defaults: the
 reference's control type (js for reach, push and mycobotreach, ee for the
 rest) and horizon (50, 100 for stack).  Training runs on the card unless
-``--device cpu`` is given; without a card it raises.  The TD3 and DDPG
-learners raise NotImplementedError.
+``--device cpu`` is given; without a card it raises.
 """
 from __future__ import annotations
 

@@ -150,3 +150,102 @@ def sample(buf: HerBuffer, generator: torch.Generator, batch_size: int,
     n_sampled_goal=4 -> her_ratio 0.8)."""
     return gather(buf, draw(buf, generator, batch_size, her_ratio),
                   reward_fn)
+
+
+# --------------------------------------------------------------------------
+# K rings in lockstep (the population trainer, rl/population.py)
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class StackedHerBuffer:
+    """K members' rings, each tensor (K, E, ...): the JAX population's
+    buffer (population.py:95-113, a HerBuffer with a leading member axis).
+    The members fill in lockstep, so one ``write_idx`` and one ``n_stored``
+    serve all K."""
+
+    obs: torch.Tensor          # (K, E, T+1, obs_dim)
+    achieved: torch.Tensor     # (K, E, T+1, goal_dim)
+    desired: torch.Tensor      # (K, E, goal_dim)
+    action: torch.Tensor       # (K, E, T, act_dim)
+    aux: torch.Tensor          # (K, E, T, aux_dim)
+    ep_len: torch.Tensor       # (K, E) int32
+    terminated: torch.Tensor   # (K, E, T) bool
+    write_idx: int = 0
+    n_stored: int = 0
+
+    @property
+    def members(self) -> int:
+        return self.obs.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.obs.shape[1]
+
+    @property
+    def ep_horizon(self) -> int:
+        return self.action.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.obs.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, k).nbytes for k in TENSORS)
+
+    def replace(self, **kw) -> "StackedHerBuffer":
+        return dataclasses.replace(self, **kw)
+
+    def flat(self) -> HerBuffer:
+        """The K rings as one HerBuffer of K * E slots, member k's slot e at
+        k * E + e (a view)."""
+        return HerBuffer(**{k: getattr(self, k).flatten(0, 1)
+                            for k in TENSORS},
+                         write_idx=self.write_idx, n_stored=self.n_stored)
+
+
+def create_stacked(members: int, capacity_episodes: int, ep_horizon: int,
+                   obs_dim: int, goal_dim: int, act_dim: int, aux_dim: int,
+                   device="cuda") -> StackedHerBuffer:
+    one = create(members * capacity_episodes, ep_horizon, obs_dim, goal_dim,
+                 act_dim, aux_dim, device)
+    return StackedHerBuffer(**{
+        k: getattr(one, k).unflatten(0, (members, capacity_episodes))
+        for k in TENSORS})
+
+
+def add_stacked(buf: StackedHerBuffer, **episodes) -> StackedHerBuffer:
+    """Write each member's batch of n completed episodes into its ring, in
+    place: ``episodes`` are member-major, (K * n, ...), member k's at rows
+    k * n ... (k + 1) * n - 1, as the population's env batch lays them out."""
+    K, E = buf.members, buf.capacity
+    n = episodes["obs"].shape[0] // K
+    idx = (buf.write_idx + torch.arange(n, device=buf.device)) % E
+    for k, v in episodes.items():
+        dst = getattr(buf, k)
+        dst[:, idx] = v.unflatten(0, (K, n)).to(dst.dtype)
+    return buf.replace(write_idx=(buf.write_idx + n) % E,
+                       n_stored=min(buf.n_stored + n, E))
+
+
+def draw_stacked(buf: StackedHerBuffer, generator: torch.Generator,
+                 batch_size: int, her_ratio: float = 0.8):
+    """``draw`` for every member at once: each draw (K, batch_size)."""
+    dev, shape = buf.device, (buf.members, batch_size)
+    u = lambda: torch.rand(shape, generator=generator, device=dev)  # noqa
+    ep = torch.randint(0, max(buf.n_stored, 1), shape, generator=generator,
+                       device=dev)
+    return dict(ep=ep, u_t=u(), u_f=u(), use_her=u() < her_ratio)
+
+
+def gather_stacked(buf: StackedHerBuffer, draws: Dict[str, torch.Tensor],
+                   reward_fn: Callable) -> Dict[str, torch.Tensor]:
+    """``gather`` for every member at once, as one gather from the flat
+    K * E view: each output (K, batch_size, ...)."""
+    K, E = buf.members, buf.capacity
+    offset = torch.arange(K, device=buf.device)[:, None] * E
+    flat = {k: v.flatten() for k, v in draws.items()}
+    flat["ep"] = (draws["ep"] + offset).flatten()
+    out = gather(buf.flat(), flat, reward_fn)
+    return {k: v.unflatten(0, (K, -1)) for k, v in out.items()}

@@ -1,4 +1,4 @@
-"""Off-policy learners: SAC and TQC in PyTorch (port of
+"""Off-policy learners: SAC, TQC, TD3 and DDPG in PyTorch (port of
 panda_gym_tpu/rl/learners.py).
 
 TQC follows Kuznetsov et al. 2020 (truncated quantile critics): per-critic
@@ -16,7 +16,11 @@ those standard-normal draws are arguments, and ``update_noise`` /
 ``act_noise`` draw them from an explicit ``torch.Generator``.  Where the
 JAX update returns a new state, this one updates ``ts`` in place and
 returns it; each parameter's ``.grad`` keeps the gradient of its update.
-TD3, DDPG and PPO wait for ROADMAP item 15.
+
+Every learner's update is one sequence (``_Base.update``) over four hooks:
+``target``, ``critic_loss``, ``actor_loss`` and ``actor_steps``; the
+population trainer (rl/population.py) runs the same hooks on K stacked
+members.  ``make_learner("PPO")`` returns rl/ppo.py's on-policy learner.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ from torch import nn
 
 from panda_gym_tpu_torch.rl.checkpoint import restore_tensors
 from panda_gym_tpu_torch.rl.networks import (
-    QCritic, SDEGaussianActor, SquashedGaussianActor, deterministic_action,
-    sample_sde_squashed, sample_squashed, sde_action_from_expl, sde_std)
+    DeterministicActor, QCritic, SDEGaussianActor, SquashedGaussianActor,
+    deterministic_action, sample_sde_squashed, sample_squashed,
+    sde_action_from_expl, sde_std)
 
 
 @dataclass
@@ -91,14 +96,28 @@ def load_state(ts: TrainState, state: Dict, what: str = "learner"):
     return ts
 
 
-def _step_grad(opt, params, loss):
+def _step_grad(opt, params, loss, keep=True):
+    """One Adam step on the gradient of ``loss``; with ``keep`` false the
+    gradient is replaced by zeros and the step still runs (the moments
+    decay, the count advances and the parameters move by momentum), as
+    optax.adam does with TD3's masked gradient (learners.py:334-339).
+    torch.optim.Adam would skip a parameter whose .grad is None."""
     grads = torch.autograd.grad(loss, params)
     for p, g in zip(params, grads):
-        p.grad = g
+        p.grad = g if keep else torch.zeros_like(g)
     opt.step()
 
 
 class _Base:
+    """The update every learner shares (learners.py:357-397 for SAC and
+    TQC, 315-349 for TD3 and DDPG), in place: the critic steps first; the
+    actor loss reads the new critic but sends gradient only into the actor;
+    where the learner tunes alpha, the alpha loss uses that loss's logp
+    without its gradient and alpha = exp(log_alpha) as it was before the
+    update throughout; then the target's soft update from the new critic."""
+
+    uses_alpha = True
+
     def __init__(self, obs_dim: int, act_dim: int, hp, device="cuda"):
         self.obs_dim = obs_dim
         self.act_dim = act_dim
@@ -124,6 +143,62 @@ class _Base:
         for p, t in zip(params.parameters(), target.parameters()):
             t.copy_(self.tau * p + (1.0 - self.tau) * t)
 
+    def _state(self, actor, generator) -> TrainState:
+        """A fresh TrainState around ``actor``: the critic drawn after it,
+        its target a copy, log_alpha 0 and an Adam for each."""
+        critic = QCritic(self.obs_dim + self.act_dim, self.net_arch,
+                         self.out_dim, self.n_critics, generator, self.device)
+        target = copy.deepcopy(critic).requires_grad_(False)
+        log_alpha = torch.zeros((), device=self.device, requires_grad=True)
+        return TrainState(
+            actor=actor, critic=critic, target_critic=target,
+            actor_opt=adam(actor.parameters(), self.lr),
+            critic_opt=adam(critic.parameters(), self.lr),
+            log_alpha=log_alpha, alpha_opt=adam([log_alpha], self.lr))
+
+    def act_noise(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        """The standard-normal draw of one stochastic action of a batch of
+        n (act_noise_shape)."""
+        return torch.randn(self.act_noise_shape(n), generator=generator,
+                           device=self.device)
+
+    def update_noise(self, generator: torch.Generator, n: int):
+        """The standard-normal draws of one update on a batch of n, one per
+        shape of update_noise_shapes."""
+        return tuple(torch.randn(s, generator=generator, device=self.device)
+                     for s in self.update_noise_shapes(n))
+
+    def split_noise(self, noise):
+        """(the target's draw, the actor loss's draw) of update_noise."""
+        return noise
+
+    def actor_steps(self, step: int) -> bool:
+        """Whether update number ``step`` uses the actor's gradient."""
+        return True
+
+    def update(self, ts: TrainState, batch: Dict, noise):
+        noise_t, noise_a = self.split_noise(noise)
+        alpha = torch.exp(ts.log_alpha.detach())
+        target = self.target(ts, batch, noise_t, alpha)
+
+        closs = self.critic_loss(ts.critic, batch, target)
+        _step_grad(ts.critic_opt, list(ts.critic.parameters()), closs)
+
+        aloss, logp = self.actor_loss(ts.actor, ts.critic, batch["x"],
+                                      noise_a, alpha)
+        _step_grad(ts.actor_opt, list(ts.actor.parameters()), aloss,
+                   self.actor_steps(ts.step))
+        m = dict(critic_loss=closs.detach(), actor_loss=aloss.detach())
+        if self.uses_alpha:
+            lloss = -torch.mean(ts.log_alpha * (logp.detach()
+                                                + self.target_entropy))
+            _step_grad(ts.alpha_opt, [ts.log_alpha], lloss)
+            m["alpha"] = alpha
+
+        self.soft_update(ts.critic, ts.target_critic)
+        ts.step += 1
+        return ts, dict(m, q_target_mean=torch.mean(target))
+
 
 class SACLearner(_Base):
     """Soft actor-critic with automatic entropy tuning (ent_coef='auto',
@@ -146,31 +221,22 @@ class SACLearner(_Base):
         mean, log_std = actor(x)
         return sample_squashed(mean, log_std, noise)
 
-    def act_noise(self, generator: torch.Generator, n: int) -> torch.Tensor:
-        """The standard-normal draw of one stochastic action (sample) of a
+    def act_noise_shape(self, n: int):
+        """The shape of one stochastic action's standard-normal draw for a
         batch of n: W (latent, act) for the gSDE actor, eps (n, act)
         otherwise."""
-        shape = ((self.net_arch[-1], self.act_dim) if self.use_sde
-                 else (n, self.act_dim))
-        return torch.randn(shape, generator=generator, device=self.device)
+        return ((self.net_arch[-1], self.act_dim) if self.use_sde
+                else (n, self.act_dim))
 
-    def update_noise(self, generator: torch.Generator, n: int):
-        """The draws of one update: the target's and the actor loss's action
-        samples (k_t and k_a of learners.py:358)."""
-        return self.act_noise(generator, n), self.act_noise(generator, n)
+    def update_noise_shapes(self, n: int):
+        """The target's and the actor loss's action samples (k_t and k_a of
+        learners.py:358)."""
+        return self.act_noise_shape(n), self.act_noise_shape(n)
 
     def init(self, generator: torch.Generator) -> TrainState:
         actor = self.actor_cls(self.obs_dim, self.act_dim, self.net_arch,
                                self.log_std_init, generator, self.device)
-        critic = QCritic(self.obs_dim + self.act_dim, self.net_arch, self.out_dim, self.n_critics,
-                         generator, self.device)
-        target = copy.deepcopy(critic).requires_grad_(False)
-        log_alpha = torch.zeros((), device=self.device, requires_grad=True)
-        return TrainState(
-            actor=actor, critic=critic, target_critic=target,
-            actor_opt=adam(actor.parameters(), self.lr),
-            critic_opt=adam(critic.parameters(), self.lr),
-            log_alpha=log_alpha, alpha_opt=adam([log_alpha], self.lr))
+        return self._state(actor, generator)
 
     # ------------------------------------------------------------- acting
     @torch.no_grad()
@@ -235,35 +301,6 @@ class SACLearner(_Base):
         q = self._q_for_actor(critic(x, a))
         return torch.mean(alpha * logp - q), logp
 
-    # ------------------------------------------------------------- update
-    def update(self, ts: TrainState, batch: Dict, noise):
-        """One update (learners.py:357-397), in place: the critic steps
-        first; the actor loss reads the new critic but sends gradient only
-        into the actor; the alpha loss uses that loss's logp without its
-        gradient; alpha = exp(log_alpha) as it was before the update
-        throughout; then the target's soft update from the new critic."""
-        noise_t, noise_a = noise
-        alpha = torch.exp(ts.log_alpha.detach())
-        target = self.target(ts, batch, noise_t, alpha)
-
-        cparams = list(ts.critic.parameters())
-        closs = self.critic_loss(ts.critic, batch, target)
-        _step_grad(ts.critic_opt, cparams, closs)
-
-        aparams = list(ts.actor.parameters())
-        aloss, logp = self.actor_loss(ts.actor, ts.critic, batch["x"],
-                                      noise_a, alpha)
-        _step_grad(ts.actor_opt, aparams, aloss)
-
-        lloss = -torch.mean(ts.log_alpha * (logp.detach()
-                                            + self.target_entropy))
-        _step_grad(ts.alpha_opt, [ts.log_alpha], lloss)
-
-        self.soft_update(ts.critic, ts.target_critic)
-        ts.step += 1
-        return ts, dict(critic_loss=closs.detach(), actor_loss=aloss.detach(),
-                        alpha=alpha, q_target_mean=torch.mean(target))
-
 
 class TQCLearner(SACLearner):
     """Truncated Quantile Critics (sb3_contrib TQC equivalent), the
@@ -305,6 +342,76 @@ class TQCLearner(SACLearner):
         return torch.mean(z, dim=(0, 2))
 
 
+class TD3Learner(_Base):
+    """Twin-delayed DDPG (learners.py:275-349): target policy smoothing,
+    the min over two critics, and the actor's gradient on every
+    ``policy_delay``-th update only.  TrainState keeps log_alpha and its
+    Adam, unused, as the JAX state does, so that checkpoints and
+    named_state stay uniform."""
+
+    uses_alpha = False
+    policy_noise = 0.2
+    noise_clip = 0.5
+    policy_delay = 2
+    n_critics = 2
+
+    def __init__(self, obs_dim, act_dim, hp, device="cuda"):
+        super().__init__(obs_dim, act_dim, hp, device)
+        self.tau = getattr(hp, "tau", 0.005)
+        self.noise_std = getattr(hp, "noise_std", 0.1)
+        self.out_dim = 1
+
+    def init(self, generator: torch.Generator) -> TrainState:
+        actor = DeterministicActor(self.obs_dim, self.act_dim, self.net_arch,
+                                   generator, self.device)
+        return self._state(actor, generator)
+
+    def act_noise_shape(self, n: int):
+        return (n, self.act_dim)
+
+
+    def update_noise_shapes(self, n: int):
+        """The target smoothing draw (learners.py:317)."""
+        return (self.act_noise_shape(n),)
+
+    def split_noise(self, noise):
+        return noise[0], None
+
+    @torch.no_grad()
+    def act(self, ts: TrainState, x, noise: Optional[torch.Tensor] = None,
+            deterministic: bool = False, expl=None):
+        a = ts.actor(x)
+        if not deterministic:
+            a = torch.clamp(a + self.noise_std * noise, -1.0, 1.0)
+        return a
+
+    def target(self, ts, batch, noise_t, alpha=None):
+        with torch.no_grad():
+            a2 = ts.actor(batch["x2"])
+            noise = torch.clamp(self.policy_noise * noise_t,
+                                -self.noise_clip, self.noise_clip)
+            a2 = torch.clamp(a2 + noise, -1.0, 1.0)
+            q2 = torch.amin(ts.target_critic(batch["x2"], a2)[..., 0], 0)
+            return batch["reward"] + self.gamma * (
+                1.0 - batch["terminated"]) * q2
+
+    critic_loss = SACLearner.critic_loss
+
+    def actor_loss(self, actor, critic, x, noise_a=None, alpha=None):
+        """(-mean Q_0(x, actor(x)), None): the first critic only."""
+        return -torch.mean(critic(x, actor(x))[0, :, 0]), None
+
+    def actor_steps(self, step: int) -> bool:
+        return step % self.policy_delay == 0
+
+
+class DDPGLearner(TD3Learner):
+    policy_noise = 0.0
+    noise_clip = 0.0
+    policy_delay = 1
+    n_critics = 1
+
+
 def ckpt_uses_sde(ts) -> bool:
     """Whether a TrainState's actor (or that of a saved state, save_state)
     is the gSDE actor.  Checkpoints from before the true-gSDE
@@ -324,11 +431,15 @@ def align_sde_with_ckpt(hp, ts) -> None:
 
 def make_learner(algorithm: str, obs_dim: int, act_dim: int, hp,
                  device="cuda"):
-    """Algorithm dispatch (setup_training.py:100-115)."""
-    if algorithm in ("TD3", "DDPG", "PPO"):
-        raise NotImplementedError(
-            f"{algorithm} is not ported yet (ROADMAP item 15)")
-    algos = {"SAC": SACLearner, "TQC": TQCLearner, "TQC_v2": TQCLearner}
+    """Algorithm dispatch (setup_training.py:100-115; + PPO, which the
+    reference ships a preset for but never wires into its dispatch).  PPO
+    is on-policy: rl/ppo.py's train_ppo drives it, and the off-policy
+    Trainer rejects it."""
+    if algorithm == "PPO":
+        from panda_gym_tpu_torch.rl.ppo import PPOLearner
+        return PPOLearner(obs_dim, act_dim, hp, device)
+    algos = {"SAC": SACLearner, "TQC": TQCLearner, "TQC_v2": TQCLearner,
+             "TD3": TD3Learner, "DDPG": DDPGLearner}
     if algorithm not in algos:
         raise Exception("Algorithm not found!")  # setup_training.py:112-113
     return algos[algorithm](obs_dim, act_dim, hp, device)

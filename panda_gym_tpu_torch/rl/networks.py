@@ -13,8 +13,6 @@ between the packages by name (``to_flax`` / ``load_flax``).
 Every sampler takes its standard-normal draws as an argument (``eps``,
 ``W``, ``expl``); the learners draw them from an explicit
 ``torch.Generator``, and the tests hand both packages the same draws.
-DeterministicActor and GaussianPolicy (TD3/DDPG, PPO) wait for ROADMAP item
-15.
 """
 from __future__ import annotations
 
@@ -72,6 +70,57 @@ class _DenseStack(nn.Module):
         for layer in self.dense[:self.n_hidden]:
             x = F.relu(layer(x))
         return x
+
+
+class MLP(_DenseStack):
+    """ReLU hidden layers and a linear head (networks.py:28-36; PPO's value
+    head is ``MLP(in_dim, net_arch, 1)``)."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int], out_dim: int,
+                 generator=None, device="cuda"):
+        super().__init__()
+        self._build(in_dim, hidden, [(out_dim, 0.0)], generator, device)
+
+    def forward(self, x):
+        return self.dense[-1](self.latent(x))
+
+
+class DeterministicActor(_DenseStack):
+    """tanh deterministic actor (TD3/DDPG, networks.py:142-153)."""
+
+    def __init__(self, in_dim: int, action_dim: int,
+                 hidden: Sequence[int] = (256, 256), generator=None,
+                 device="cuda"):
+        super().__init__()
+        self._build(in_dim, hidden, [(action_dim, 0.0)], generator, device)
+
+    def forward(self, x):
+        return torch.tanh(self.dense[-1](self.latent(x)))
+
+
+class GaussianPolicy(_DenseStack):
+    """Unsquashed diagonal-Gaussian policy with a state-independent
+    ``log_std`` parameter (PPO, networks.py:177-194): returns the mean and
+    log_std broadcast to the mean's shape."""
+
+    def __init__(self, in_dim: int, action_dim: int,
+                 hidden: Sequence[int] = (256, 256),
+                 log_std_init: float = -2.0, generator=None, device="cuda"):
+        super().__init__()
+        self._build(in_dim, hidden, [(action_dim, 0.0)], generator, device)
+        self.log_std = nn.Parameter(torch.full(
+            (action_dim,), float(log_std_init), device=device))
+
+    def forward(self, x):
+        mean = self.dense[-1](self.latent(x))
+        return mean, self.log_std.expand(mean.shape)
+
+
+def gaussian_logp(mean, log_std, a):
+    """Diagonal-Gaussian log-density of a (networks.py:197-200)."""
+    z = (a - mean) / torch.exp(log_std)
+    return torch.sum(-0.5 * z ** 2 - log_std - 0.5 * math.log(2 * math.pi),
+                     -1)
 
 
 class SquashedGaussianActor(_DenseStack):
@@ -194,7 +243,7 @@ def _flax_name(name: str) -> str:
         return f"params/Dense_{i}/" + ("kernel" if leaf == "weight" else "bias")
     if kind in ("kernel", "bias"):      # critic ensemble: kernel.i, bias.i
         return f"params/VmapMLP_0/Dense_{rest[0]}/{kind}"
-    return f"params/{name}"             # log_std_sde
+    return f"params/{name}"             # log_std_sde, log_std
 
 
 def _to_flax_layout(name: str, t: torch.Tensor) -> np.ndarray:

@@ -64,6 +64,12 @@ def _keep(done, old, new):
     return torch.where(done.view((-1,) + (1,) * (new.dim() - 1)), old, new)
 
 
+def keep_states(done, old, new):
+    """_keep on every field of two batched EnvStates."""
+    return new.replace(**{k: _keep(done, getattr(old, k), getattr(new, k))
+                          for k in new.__dataclass_fields__})
+
+
 class VectorEnv:
     """Batched env with episode rollouts (train.py:55-238, without the
     device mesh)."""
@@ -131,9 +137,7 @@ class VectorEnv:
         nstates, nobs, reward, term, trunc, info = core.batched_step(
             states, action)
         step_done = term | trunc
-        states = states.replace(**{
-            k: _keep(done, getattr(states, k), getattr(nstates, k))
-            for k in states.__dataclass_fields__})
+        states = keep_states(done, states, nstates)
         obs = {k: _keep(done, obs[k], nobs[k]) for k in nobs}
         reward = torch.where(done, 0.0, reward)
         aux = _hi_prec(core.task.reward_aux)(core, states)
@@ -193,6 +197,18 @@ def learner_batch(b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
                              -1),
                 action=b["action"], reward=b["reward"],
                 terminated=b["terminated"].float())
+
+
+def reject_on_policy(algorithm: str):
+    """PPO is on-policy: rl/ppo.py's train_ppo drives it.  The off-policy
+    trainers would feed it HER replay batches it cannot consume, and the
+    reference never wires PPO into its dispatch (train.py:303-308)."""
+    if algorithm == "PPO":
+        raise ValueError(
+            "PPO is on-policy: use rl/ppo.py::train_ppo (the off-policy "
+            "trainers would feed it HER replay batches it cannot consume; "
+            "the reference never wires PPO into its dispatch either, "
+            "setup_training.py:100-115)")
 
 
 @dataclass(frozen=True)
@@ -296,6 +312,7 @@ class Trainer:
     def _ensure_learner(self, venv: VectorEnv, capacity: int):
         cfg = self.config
         dev = venv.core.device
+        reject_on_policy(cfg.algorithm)
         if self.learner is None:
             self.learner = make_learner(cfg.algorithm, venv.x_dim,
                                         venv.act_dim, cfg.hyperparams, dev)

@@ -4,8 +4,11 @@ active set, the contact torque) on the welded Panda, MyCobot and the 9-dof
 Panda, the batched Reach, ReachAO, Push, Slide, PickAndPlace and
 MyCobotReach envs, the trainer (HER sample and TQC
 update against the CPU, a short Reach run), the batched IK of the
-evaluation's start poses (against the CPU), and the paths of the NEO prior
-and the ee/pcc control modes (against the CPU) on the card.
+evaluation's start poses (against the CPU), the paths of the NEO prior
+and the ee/pcc control modes (against the CPU), and the other learners and
+the population (the stacked update against the CPU and the members' own
+updates, TD3, DDPG, PPO and BC against the CPU, a short population run) on
+the card.
 
 Run on a machine with an NVIDIA card (tests/conftest.py imports JAX, which
 such a machine need not have, so it is skipped):
@@ -605,3 +608,191 @@ def test_prior_paths_run_on_card(card, tmp_path):
                               "timeout_rate")]
     assert abs(sum(rates) - 1.0) < 1e-9
     assert core.physics_step_batched.motor.launches == 20 * 5
+
+
+# ------------------------------ the other learners and the population
+
+def _small_hp(algo, **kw):
+    hp = Hyperparameters(algo)
+    hp.policy_kwargs = dict(hp.policy_kwargs, net_arch=[64, 64])
+    for k, v in kw.items():
+        setattr(hp, k, v)
+    return hp
+
+
+def _rand_batch(gen, shape, x_dim, act):
+    dev = gen.device
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    return dict(x=r(*shape, x_dim), x2=r(*shape, x_dim),
+                action=torch.tanh(r(*shape, act)), reward=-torch.rand(
+                    shape, generator=gen, device=dev),
+                terminated=(torch.rand(shape, generator=gen, device=dev)
+                            < 0.2).float())
+
+
+def test_stacked_update_card_matches_cpu_and_members(card):
+    """One stacked TQC update of 3 members on the card against the same on
+    the CPU and against each member's own update on the card: losses and
+    gradients within rtol 1e-4 / atol 1e-6, the members' new state within
+    atol 1e-5."""
+    from panda_gym_tpu_torch.rl.population import (StackedLearner,
+                                                   member_slice,
+                                                   pop_named_state)
+    K, X, A, B = 3, 30, 7, 128
+    stacked = StackedLearner(make_learner("TQC", X, A, _small_hp("TQC"),
+                                          card), K)
+    pop = stacked.init(torch.Generator(card).manual_seed(0))
+    cpu = StackedLearner(make_learner("TQC", X, A, _small_hp("TQC"), "cpu"),
+                         K)
+    pop_cpu = cpu.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        live = pop_named_state(pop)
+        for k, t in pop_named_state(pop_cpu).items():
+            t.copy_(live[k].cpu())
+    members = [member_slice(stacked, pop, i) for i in range(K)]
+    gen = torch.Generator(card).manual_seed(1)
+    batch = _rand_batch(gen, (K, B), X, A)
+    noise = stacked.update_noise(gen, B)
+    _, m = stacked.update(pop, batch, noise)
+    _, m_cpu = cpu.update(pop_cpu, {k: v.cpu() for k, v in batch.items()},
+                          tuple(n.cpu() for n in noise))
+    for k in ("critic_loss", "actor_loss", "alpha"):
+        np.testing.assert_allclose(m[k].cpu().numpy(), m_cpu[k].numpy(),
+                                   rtol=1e-4)
+    for name in ("actor", "critic"):
+        for n, p in getattr(pop, name).items():
+            np.testing.assert_allclose(
+                p.grad.cpu().numpy(), getattr(pop_cpu, name)[n].grad.numpy(),
+                rtol=1e-4, atol=1e-6, err_msg=f"{name}.{n}")
+    after = pop_named_state(pop)
+    for i, ts in enumerate(members):
+        stacked.learner.update(ts, {k: v[i] for k, v in batch.items()},
+                               tuple(n[i] for n in noise))
+        for k, t in named_state(ts).items():
+            if not k.endswith("/step"):
+                np.testing.assert_allclose(after[k][i].detach().cpu().numpy(),
+                                           t.detach().cpu().numpy(),
+                                           atol=1e-5, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("algo", ["TD3", "DDPG"])
+def test_td3_ddpg_update_card_matches_cpu(card, algo):
+    X, A, B = 30, 7, 256
+    on_card = make_learner(algo, X, A, _small_hp(algo), card)
+    on_cpu = make_learner(algo, X, A, _small_hp(algo), "cpu")
+    ts = on_card.init(torch.Generator(card).manual_seed(0))
+    ts_cpu = load_state(on_cpu.init(torch.Generator().manual_seed(0)),
+                        save_state(ts))
+    gen = torch.Generator(card).manual_seed(1)
+    for _ in range(2):          # TD3's second update is the delayed one
+        batch = _rand_batch(gen, (B,), X, A)
+        noise = on_card.update_noise(gen, B)
+        _, m = on_card.update(ts, batch, noise)
+        _, m_cpu = on_cpu.update(ts_cpu, {k: v.cpu() for k, v in
+                                          batch.items()},
+                                 tuple(n.cpu() for n in noise))
+        for k in ("critic_loss", "actor_loss"):
+            np.testing.assert_allclose(float(m[k]), float(m_cpu[k]),
+                                       rtol=1e-4)
+        for name in ("actor", "critic"):
+            for (n, p), q in zip(getattr(ts, name).named_parameters(),
+                                 getattr(ts_cpu, name).parameters()):
+                np.testing.assert_allclose(p.grad.cpu().numpy(),
+                                           q.grad.numpy(), rtol=1e-4,
+                                           atol=1e-6, err_msg=f"{name}.{n}")
+
+
+def test_ppo_on_card_matches_cpu(card):
+    """A short train_ppo on Reach on the card (K1 once per env step), then
+    one update from the same state, rollout and permutations on the card
+    and the CPU: the metrics within rtol 1e-3 and the new policy's mean
+    actions within atol 1e-3 (chip_smoke phase 13's rule for a whole
+    update)."""
+    from panda_gym_tpu_torch.rl.ppo import (PPOLearner, collect_rollout,
+                                            train_ppo)
+    hp = _small_hp("PPO", n_steps=32, n_epochs=2, batch_size=64)
+    core = make_core("reach")
+    learner, ts, hist = train_ppo(core, hp, total_steps=32 * 8, n_envs=8)
+    assert len(hist) == 1 and core.physics_step_batched.motor.launches == 32
+    gen = torch.Generator(card).manual_seed(3)
+    states, obs = core.batched_reset(8, gen)
+    _, _, ro, _ = collect_rollout(core, learner, ts, states, obs, gen, 32)
+    perms = learner.update_perms(gen, ro["x"].shape[0])
+    cpu = PPOLearner(learner.obs_dim, learner.act_dim, hp, "cpu")
+    ts_cpu = cpu.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m_, o in (("actor", "actor_opt"), ("value", "value_opt")):
+            for p, q in zip(getattr(ts, m_).parameters(),
+                            getattr(ts_cpu, m_).parameters()):
+                q.copy_(p)
+                for k, v in getattr(ts, o).state[p].items():
+                    getattr(ts_cpu, o).state[q][k].copy_(v)
+    _, m = learner.update(ts, ro, perms)
+    _, m_cpu = cpu.update(ts_cpu, {k: v.cpu() for k, v in ro.items()},
+                          perms.cpu())
+    for k in m_cpu:
+        np.testing.assert_allclose(float(m[k]), float(m_cpu[k]), rtol=1e-3)
+    np.testing.assert_allclose(
+        learner.act(ts, ro["x"], deterministic=True).cpu().numpy(),
+        cpu.act(ts_cpu, ro["x"].cpu(), deterministic=True).numpy(),
+        atol=1e-3)
+
+
+def test_population_learns_on_card(card, tmp_path):
+    """Two members of 8 envs on Reach: each env step one batched_step of 16
+    envs (one K1 launch), the stacked state and the stacked replay on the
+    card, a member checkpoint the Trainer loads."""
+    from panda_gym_tpu_torch.rl.population import PopulationTrainer
+    cfg = TrainConfig(n_envs=8, stages=["s0"], max_ep_steps=[5],
+                      ee_error_thresholds=[0.05], success_thresholds=[2.0],
+                      max_timesteps=120, learning_starts=40,
+                      interleave_min_buffer=20, eval_freq=120,
+                      benchmark_eval_scenes=[])
+    cfg.hyperparams = _small_hp("TQC")
+    cores, rows = [], []
+
+    def make_env(scene, thr, spd):
+        cores.append(make_core("reach"))
+        return cores[-1]
+
+    logger = RunLogger(root=str(tmp_path))
+    log = logger.log
+    logger.log = lambda row: (rows.append(row), log(row))
+    pt = PopulationTrainer(cfg, make_env, 2, logger=logger)
+    pt.learn(seed=0)
+    roll = [r for r in rows if "rollout_success" in r]
+    fused = [r for r in roll if "critic_loss" in r]
+    evals = [r for r in rows if "eval_success" in r]
+    assert len(fused) >= 1 and len(evals) == 1
+    # one launch per env step of every rollout and the evaluation
+    assert cores[0].physics_step_batched.motor.launches == 5 * (
+        len(roll) + len(evals))
+    assert pt.pop.step == len(fused) * 5 * 1 and pt.timesteps >= 2 * 120
+    assert pt.buffer.obs.device.type == "cuda" and pt.buffer.members == 2
+    assert all(v.device.type == "cuda" for v in pt.pop.actor.values())
+    path = str(tmp_path / "m1.ckpt")
+    pt.save_member(path, 1)
+    tr = Trainer(cfg, make_env)
+    tr.load(path)
+    assert tr.timesteps == pt.timesteps // 2
+
+
+def test_bc_train_card_matches_cpu(card):
+    from panda_gym_tpu_torch.rl.distill import bc_train, init_student
+    gen = torch.Generator(card).manual_seed(0)
+    X = torch.randn(500, 30, generator=gen, device=card)
+    A = torch.tanh(torch.randn(500, 7, generator=gen, device=card))
+    learner = make_learner("TQC", 30, 7, _small_hp("TQC"), card)
+    student = init_student(learner, gen)
+    cpu = make_learner("TQC", 30, 7, _small_hp("TQC"), "cpu")
+    student_cpu = init_student(cpu, torch.Generator())
+    student_cpu.load_state_dict({k: v.cpu()
+                                 for k, v in student.state_dict().items()})
+    _, loss = bc_train(student, X, A, steps=50, batch_size=128, seed=1)
+    _, loss_cpu = bc_train(student_cpu, X.cpu(), A.cpu(), steps=50,
+                           batch_size=128, seed=1)
+    np.testing.assert_allclose(loss, loss_cpu, rtol=1e-3)
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            torch.tanh(student(X)[0]).cpu().numpy(),
+            torch.tanh(student_cpu(X.cpu())[0]).numpy(), atol=1e-3)

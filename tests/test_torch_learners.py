@@ -253,9 +253,12 @@ def test_act_matches_jax(sde):
 
 
 def test_unported_algorithms_raise():
-    for algo in ("TD3", "DDPG", "PPO"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            TL.make_learner(algo, X, A, Hyperparameters(algo), device="cpu")
+    """TD3, DDPG and PPO are ported and build; an unknown name still
+    raises."""
+    for algo, cls in (("TD3", TL.TD3Learner), ("DDPG", TL.DDPGLearner),
+                      ("PPO", None)):
+        got = TL.make_learner(algo, X, A, Hyperparameters(algo), device="cpu")
+        assert type(got).__name__ == (cls.__name__ if cls else "PPOLearner")
     with pytest.raises(Exception, match="Algorithm not found"):
         TL.make_learner("A2C", X, A, Hyperparameters("TQC"), device="cpu")
 

@@ -499,6 +499,19 @@ def test_classic_cli(tmp_path, monkeypatch):
     assert classic_cli.task_defaults("stack") == ("ee", 100)
     assert classic_cli.task_defaults("flip") == ("ee", 50)
     assert classic_cli.task_defaults("mycobotreach") == ("js", 50)
-    with pytest.raises(NotImplementedError):
-        classic_cli.main(args + ["--device", "cpu", "--algorithm", "TD3",
-                                 "--name", "td3"])
+    # TD3 and DDPG train (the deterministic actor, no alpha)
+    for algo in ("TD3", "DDPG"):
+        tr = classic_cli.main(["--task", "reach", "--n-envs", "2",
+                               "--max-ep-steps", "3", "--max-timesteps", "12",
+                               "--learning-starts", "6", "--eval-freq", "12",
+                               "--n-eval-episodes", "2", "--device", "cpu",
+                               "--algorithm", algo, "--name", algo])
+        assert type(tr.learner).__name__ == f"{algo}Learner"
+        assert tr.timesteps == 12 and tr.ts.step >= 1
+        assert (run.parent / algo / "final_model.ckpt").exists()
+        rows = [r for r in tr.metrics.history if "critic_loss" in r]
+        assert rows and "alpha" not in rows[-1]
+        assert all(np.isfinite(r["critic_loss"]) for r in rows)
+    # the off-policy Trainer rejects the on-policy PPO, as JAX's does
+    with pytest.raises(ValueError, match="on-policy"):
+        TT.Trainer(_small_cfg(algorithm="PPO"), _reach).learn()
