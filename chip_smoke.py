@@ -195,6 +195,22 @@ kernel, built for each chain, for MyCobot and the 9-dof Panda.  Phases, one prog
      1e-5).  K1 beside its bound at the population's B = 256 and at 16
      and 64.
 
+ 14. the gym surface and the stateful Simulation: K1 with a gravity
+     vector (0.3, -0.2, -9.0) against its plain version (both kernels, B 1
+     and 4096, 20 warm substeps and one cold); the reference's five Bullet
+     goldens through Simulation in the "exact" mode (one K1 launch, the
+     step held against the plain route) and the "pgs" mode (no launch),
+     each printing its route; every env class of the JAX package's gym
+     surface as one env through its adapter (a reset and 5 steps, K1's
+     launches per step counted, the first step held against the plain
+     route by phase 11's rule), and gym.make where gymnasium imports (the
+     card's machine may lack it: the gymnasium-free adapters are then the
+     layer driven, and the line says so); the vector adapter on Reach at
+     65536 and reachao1 at 4096 through an autoreset of every env; the
+     Simulation with a falling body beside a moving obstacle (the flag
+     raised, no freeze) and under gravity (0, 0, -1.62); ms per adapter,
+     vector and Simulation step, and K1 at B = 1 beside its bound.
+
 The line before the last is one JSON object with a row per kernel path
 (K1 on each path above); the last line is {"ok": true, "device": {...}}.
 Any failure exits non-zero before those lines.  Imports torch, numpy, the
@@ -3583,6 +3599,432 @@ def phase13(CD, root, rng, dev, card):
     return pop, pop_times, off, ppo, distill, reach_times
 
 
+# ----------------------------------------------------------------- phase 14
+# The gym surface and the stateful Simulation: K1 with a gravity vector; the
+# reference's Bullet goldens through Simulation in both motor-LCP modes;
+# every env class as one env through its adapter (the per-env entry point,
+# a batch of one); the vector adapter at bench.py's Reach batch and the main
+# path's reachao1 batch through an autoreset; Simulation with a free body
+# and a moving obstacle, and with a non-default gravity.
+GRAVITY = (0.3, -0.2, -9.0)
+# (class, module under panda_gym_tpu_torch.envs, constructor arguments)
+ENV_CLASSES = (
+    ("PandaReachEnv", "panda_tasks", {}),
+    ("PandaReachCheckerEnv", "panda_tasks", {}),
+    ("PandaPushEnv", "panda_tasks", {}),
+    ("PandaSlideEnv", "panda_tasks", {}),
+    ("PandaPickAndPlaceEnv", "panda_tasks", {}),
+    ("PandaStackEnv", "panda_tasks", {}),
+    ("PandaFlipEnv", "panda_tasks", {}),
+    ("MyCobotReachEnv", "panda_tasks", {}),
+    ("PandaReachAOEnv", "tasks.reach_ao", {"scenario": "reachao1"}),
+)
+ADAPTER_STEPS = 5
+# steps of each adapter held against the plain route
+ADAPTER_HELD = 1
+# the vector adapter: Reach at bench.py's batch, ReachAO at the main path's
+VECTOR = (("reach", B_BENCH), ("reachao", B_MAIN))
+# the adapter's step limit: every env autoresets on step VECTOR_EP + 1
+VECTOR_EP = 2
+# the reference's golden numbers (tests/test_bullet_goldens.py)
+GOLDEN = {"link 1 CoM": [0.000, 0.060, 0.373],
+          "link 5 velocity": [-0.0068, 0.0000, 0.1186],
+          "link 5 angular velocity": [0.000, -2.969, 0.000],
+          "joint 5 angle": [0.063],
+          "link 5 orientation": [0.707, -0.02, 0.02, 0.707]}
+ATOL_GOLDEN = 1e-3
+NEUTRAL7 = [0.0, -0.3, 0.0, -2.2, 0.0, 2.0, 0.785]
+
+
+def zero_counts(motor):
+    motor.launches = 0
+    for k in motor.kernel_launches:
+        motor.kernel_launches[k] = 0
+
+
+def counts_of(motor):
+    return motor.launches, dict(motor.kernel_launches)
+
+
+def restore_counts(motor, counts):
+    motor.launches, kl = counts
+    motor.kernel_launches.update(kl)
+
+
+def check_gravity_k1(CD, model, rng, dev, card):
+    """K1 with the gravity vector GRAVITY against its plain version with
+    the same gravity, both kernels, B 1 and 4096: 20 warm substeps, and one
+    cold substep; the gravity must move the result."""
+    err = 0.0
+    for n_sub, warm in ((N_SUBSTEPS, True), (1, False)):
+        kw = dict(n_substeps=n_sub, dt=DT, ctrl_mode=0, warm_start=warm)
+        k1 = CD.make_cuda_motor_steps(model, gravity=GRAVITY, **kw)
+        ref = CD.make_cuda_motor_steps(model, **kw)
+        for B in (1, B_MAIN):
+            q, qd, tgt = motor_inputs(model, B, 0, rng, dev)
+            qp, qdp = k1.plain(q, qd, tgt)
+            moved = (ref.plain(q, qd, tgt)[1] - qdp).abs().max().item()
+            for lanes in (CD.LANES, CD.THREAD):
+                qk, qdk = k1.launch(q, qd, tgt, lanes)
+                torch.cuda.synchronize()
+                eq = (qk - qp).abs().max().item()
+                eqd = (qdk - qdp).abs().max().item()
+                ok = eq <= ATOL_Q and eqd <= ATOL_QD
+                say(f"phase 14 K1 {KERNEL_NAMES[lanes]} with gravity "
+                    f"{GRAVITY} vs plain: {n_sub} {'warm' if warm else 'cold'}"
+                    f" substeps B={B} max|dq|={eq:.3e} (atol {ATOL_Q}) "
+                    f"max|dqd|={eqd:.3e} (atol {ATOL_QD}); the gravity moves "
+                    f"qd by {moved:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"phase 14: K1 with a gravity vector disagrees "
+                         f"with its plain version ({KERNEL_NAMES[lanes]}, "
+                         f"B={B})")
+                err = max(err, eq, eqd)
+            if B > 1 and moved <= 10 * max(err, 1e-7):
+                fail("phase 14: the gravity vector does not move K1's result")
+    return err
+
+
+def bullet_goldens(dev, card):
+    """The reference's five Bullet goldens through Simulation on the card,
+    in the "exact" mode (K1; its step first held against the plain route)
+    and the "pgs" mode (plain PyTorch PGS).  Returns the exact mode's (K1
+    launches, K1 route's largest error against the plain route)."""
+    from panda_gym_tpu_torch.ops import dynamics as D
+    from panda_gym_tpu_torch.sim.facade import Simulation
+    out = {}
+    for mode in ("exact", "pgs"):
+        D.set_lcp_mode(mode)
+        try:
+            s = Simulation(n_substeps=N_SUBSTEPS, device="cuda")
+            s.load_robot(base_position=(0.0, 0.0, 0.0), inertia="stock")
+            s.set_joint_angles("robot", list(range(7)), [0.0] * 7)
+            got = {"link 1 CoM": s.get_link_position("robot", 1)}
+            s.control_joints("robot", [5], [0.3], [5.0])
+            phys = s.physics
+            route_err = 0.0
+            if mode == "exact":
+                _, route_err, _ = hold_step_routes(
+                    phys, s._state, facade_diff,
+                    "phase 14 Bullet golden step", dev, card)
+            zero_counts(phys.motor)
+            t0 = time.perf_counter()
+            s.step()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            n, route = phys.motor.launches, phys.route
+            got["link 5 velocity"] = s.get_link_velocity("robot", 5)
+            got["link 5 angular velocity"] = s.get_link_angular_velocity(
+                "robot", 5)
+            got["joint 5 angle"] = [s.get_joint_angle("robot", 5)]
+            got["link 5 orientation"] = s.get_link_orientation("robot", 5)
+        finally:
+            D.set_lcp_mode("exact")
+        errs = {k: float(np.abs(np.asarray(v, np.float64)
+                                - np.asarray(GOLDEN[k])).max())
+                for k, v in got.items()}
+        want = 1 if mode == "exact" else 0
+        ok = max(errs.values()) <= ATOL_GOLDEN and n == want
+        say(f"phase 14 Bullet goldens, {mode} mode: route {route}, "
+            f"{n} K1 launches (want {want}), Simulation.step {step_ms:.1f} "
+            f"ms; |err| " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+            + f" (atol {ATOL_GOLDEN}) {'ok' if ok else 'FAIL'} | {card}")
+        if not ok:
+            fail(f"phase 14: the Bullet goldens fail in the {mode} mode")
+        out[mode] = (n, route_err)
+    return out["exact"]
+
+
+def adapter_diff(env):
+    """Per env, whether two physics results part beyond the tolerances
+    after the step's observation and reward (contact_diff), and for a
+    collision step its link distances and flag (route_diff)."""
+    def diff(a, b, idx):
+        d = contact_diff(env, a, b)
+        if env.task.check_collision:
+            d = d | route_diff(a, b)
+        return d
+    return diff
+
+
+def drive_adapters(CD, _hi_prec, dev, card):
+    """Every env class as one env on the card through its adapter: a reset
+    and ADAPTER_STEPS steps of seeded actions, K1's launches counted on the
+    per-env step (physics_step) and held against the launches the class's
+    physics makes per step; the first ADAPTER_HELD steps held against the
+    plain route by phase 11's rule (launches for that not counted).
+    Returns {class: (launches, kernel launches, largest error, median
+    ms/step)}."""
+    import importlib
+    out = {}
+    for name, mod, kw in ENV_CLASSES:
+        cls = getattr(importlib.import_module(
+            f"panda_gym_tpu_torch.envs.{mod}"), name)
+        env = cls(device="cuda", **kw)
+        core, phys = env.env, env.env.physics_step
+        per_step = (N_SUBSTEPS if core.task.check_collision
+                    else K1_PER_CONTACT_STEP if core.task.scene.nb else 1)
+        obs, _ = env.reset(seed=SEED)
+        rng = np.random.default_rng(SEED)
+        zero_counts(phys.motor)
+        err, ms = 0.0, []
+        for t in range(ADAPTER_STEPS):
+            a = rng.uniform(-1, 1, env.action_shape).astype(np.float32)
+            if t < ADAPTER_HELD:
+                kept = counts_of(phys.motor)
+                s_in = _hi_prec(core.robot.set_action)(
+                    env.state, torch.as_tensor(a, device=dev)[None])
+                _, e, _ = hold_step_routes(
+                    phys, s_in, adapter_diff(core),
+                    f"phase 14 {name} step {t}", dev, card)
+                err = max(err, e)
+                restore_counts(phys.motor, kept)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obs, r, term, trunc, info = env.step(a)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(np.isfinite(v).all() for v in obs.values()):
+                fail(f"phase 14 {name}: a non-finite observation")
+            if {k: v.shape for k, v in obs.items()} != env.observation_shapes:
+                fail(f"phase 14 {name}: observation shapes "
+                     f"{ {k: v.shape for k, v in obs.items()} }")
+        n, kl = counts_of(phys.motor)
+        ok = n == per_step * ADAPTER_STEPS
+        med = float(np.median(ms[1:]))
+        say(f"phase 14 {name}: reset and {ADAPTER_STEPS} steps through the "
+            f"adapter, route {phys.route}, {n} K1 launches (want "
+            f"{per_step} per step; {kl[CD.LANES]} lane-group, "
+            f"{kl[CD.THREAD]} one env per thread); step median {med:.2f} "
+            f"ms (first {ms[0]:.1f} ms) {'ok' if ok else 'FAIL'} | {card}")
+        if not ok:
+            fail(f"phase 14 {name}: K1 launches {n}, want "
+                 f"{per_step * ADAPTER_STEPS}")
+        out[name] = (n, kl, err, med)
+    try:
+        import gymnasium as gym
+    except ImportError:
+        say("phase 14 gymnasium is not installed on this machine: the "
+            "classes above are the gymnasium-free layer (EnvAdapter) that "
+            "the gymnasium.Env classes of envs/gym_envs.py subclass; "
+            "gym.make is not driven here")
+    else:
+        import panda_gym_tpu_torch
+        panda_gym_tpu_torch.register_envs(50)
+        g = gym.make("panda_gym_tpu_torch/PandaReach-v3")
+        g.reset(seed=SEED)
+        g.step(g.action_space.sample())
+        say("phase 14 gym.make('panda_gym_tpu_torch/PandaReach-v3') reset "
+            "and stepped on the card")
+    return out
+
+
+def drive_vector(CD, dev, card):
+    """The vector adapter (gymnasium's vector API without gymnasium) on
+    Reach at B_BENCH and reachao1 at B_MAIN: a reset and VECTOR_EP + 2
+    steps; an env that ended (ReachAO's collisions and successes, and
+    every env at the step limit VECTOR_EP) resets on the next step with
+    reward 0 and no flags; one batched_step and its K1 launches per step.
+    Returns {task: (B, launches, kernel launches, median ms/step, autoreset
+    step ms)}."""
+    from panda_gym_tpu_torch.envs.vector_adapter import (VectorAdapter,
+                                                         make_vector_core)
+    out = {}
+    for task, B in VECTOR:
+        core = make_vector_core(task, "reachao1", device="cuda")
+        v = VectorAdapter(core, B, max_episode_steps=VECTOR_EP)
+        v.reset(seed=SEED)
+        motor = core.physics_step_batched.motor
+        zero_counts(motor)
+        rng = np.random.default_rng(SEED)
+        ms, resets = [], []
+        for t in range(VECTOR_EP + 2):
+            a = rng.uniform(-1, 1, (B, core.robot.action_dim)).astype(
+                np.float32)
+            mask = v._needs_reset.copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obs, r, term, trunc, info = v.step(a)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            resets.append(int(mask.sum()))
+            ended = term | trunc
+            if not np.isfinite(obs["observation"]).all():
+                fail(f"phase 14 vector {task}: a non-finite observation")
+            # an env ended on the step before resets: reward 0, no flags
+            if (r[mask] != 0).any() or ended[mask].any():
+                fail(f"phase 14 vector {task}: an autoreset env has a "
+                     f"reward or a flag")
+            # the step limit ends every env that did not reset on the way
+            if t == VECTOR_EP - 1 and not (ended | mask).all():
+                fail(f"phase 14 vector {task}: the step limit did not end "
+                     f"every env")
+        if resets[VECTOR_EP] < B // 2:
+            fail(f"phase 14 vector {task}: {resets[VECTOR_EP]} autoresets "
+                 f"on step {VECTOR_EP + 1}")
+        per_step = N_SUBSTEPS if core.task.check_collision else 1
+        n, kl = counts_of(motor)
+        ok = n == per_step * (VECTOR_EP + 2)
+        med = float(np.median(ms[1:]))
+        say(f"phase 14 vector {task} B={B}: {VECTOR_EP + 2} steps, the envs "
+            f"reset per step {resets} (the step limit {VECTOR_EP}, and envs "
+            f"that ended earlier), {n} K1 launches (want {per_step} per "
+            f"step; {kl[CD.LANES]} lane-group, {kl[CD.THREAD]} one env per "
+            f"thread); step median {med:.1f} ms, the step that resets "
+            f"{resets[VECTOR_EP]} envs {ms[VECTOR_EP]:.1f} ms, every step "
+            f"{[round(m, 1) for m in ms]} {'ok' if ok else 'FAIL'} | {card}")
+        if not ok:
+            fail(f"phase 14 vector {task}: K1 launches {n}")
+        out[task] = (B, n, kl, med, ms[VECTOR_EP])
+    return out
+
+
+def facade_diff(a, b, idx):
+    """Per env, whether two facade steps part beyond the tolerances: q, qd,
+    the bodies' positions and velocities, the link distances and the
+    flag."""
+    return (((a.q - b.q).abs() > ATOL_Q).any(1)
+            | ((a.qd - b.qd).abs() > ATOL_QD).any(1)
+            | ((a.body_pos - b.body_pos).abs() > ATOL_OBS).flatten(1).any(1)
+            | ((a.body_vel - b.body_vel).abs() > ATOL_OBS).flatten(1).any(1)
+            | ((a.link_obstacle_dist - b.link_obstacle_dist).abs()
+               > ATOL_LINK).any(1)
+            | (a.is_collided != b.is_collided))
+
+
+def drive_facade(dev, card):
+    """Simulation on the card: a falling sphere beside a sphere obstacle
+    moving into the hand at 1 m/s (3 steps: one cold K1 launch with the
+    contact torque per substep, the flag raised without a freeze), and a
+    robot-only scene under gravity (0, 0, -1.62) (K1 with the gravity
+    vector, 3 steps); the first step of each held against the plain route.
+    Returns {scene: (launches, kernel launches, error, median ms/step)}."""
+    from panda_gym_tpu_torch.sim.facade import Simulation
+    out = {}
+    for scene in ("body and moving obstacle", "gravity (0, 0, -1.62)"):
+        if scene.startswith("body"):
+            s = Simulation(n_substeps=N_SUBSTEPS, device="cuda")
+            per_step = N_SUBSTEPS
+        else:
+            s = Simulation(n_substeps=N_SUBSTEPS, device="cuda",
+                           gravity=(0.0, 0.0, -1.62))
+            per_step = 1
+        s.load_robot(base_position=(-0.6, 0.0, 0.0))
+        s.create_plane(z_offset=-0.4)
+        s.create_table(length=1.1, width=0.7, height=0.4)
+        s.set_joint_angles("robot", list(range(7)), NEUTRAL7)
+        if scene.startswith("body"):
+            s.create_sphere("ball", radius=0.03, mass=1.0,
+                            position=(0.2, -0.2, 0.5))
+            ee = s.get_link_position("robot", 11)
+            s.create_sphere("mover", radius=0.03, mass=0.0,
+                            position=ee + np.array([0.14, 0.0, 0.0]))
+            s.set_base_velocity("mover", np.array([-1.0, 0.0, 0.0]))
+        tgt = list(NEUTRAL7)
+        tgt[6] = 1.5
+        s.control_joints("robot", list(range(7)), tgt)
+        phys = s.physics
+        kept = counts_of(phys.motor)
+        _, err, _ = hold_step_routes(phys, s._state, facade_diff,
+                                     f"phase 14 Simulation, {scene}", dev,
+                                     card)
+        restore_counts(phys.motor, kept)
+        zero_counts(phys.motor)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.step()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        n, kl = counts_of(phys.motor)
+        ok = n == 3 * per_step
+        if scene.startswith("body"):
+            vz = float(s.get_base_velocity("ball")[2])
+            ok &= s.is_collided and abs(vz + 9.81 * 3 * s.dt) < 1e-3
+            extra = f"flag {s.is_collided}, the ball's vz {vz:.4f} m/s"
+        else:
+            extra = f"gravity pointer {phys.motor.gravity}"
+        med = float(np.median(ms[1:]))
+        say(f"phase 14 Simulation, {scene}: route {phys.route}, {n} K1 "
+            f"launches (want {per_step} per step), {extra}; step median "
+            f"{med:.1f} ms (first {ms[0]:.1f} ms) {'ok' if ok else 'FAIL'} "
+            f"| {card}")
+        if not ok:
+            fail(f"phase 14 Simulation, {scene}: the checks failed")
+        out[scene] = (n, kl, err, med)
+    return out
+
+
+# K1 at B = 1 as the per-env entry points launch it: (kind, chain, substeps,
+# warm, with tau_ext, gravity)
+B1_KINDS = (("warm20", "panda7", N_SUBSTEPS, True, False, None),
+            ("warm20 gravity", "panda7", N_SUBSTEPS, True, False, GRAVITY),
+            ("warm20", "mycobot", N_SUBSTEPS, True, False, None),
+            ("cold1", "panda7", 1, False, False, None),
+            ("cold1 tau", "panda7", 1, False, True, None),
+            ("warm1 tau", "panda7", 1, True, True, None),
+            ("warm1 tau", "panda9", 1, True, True, None))
+
+
+def k1_times_b1(CD, models, rng, dev, card):
+    """K1 at B = 1 beside its bound, one row of B1_KINDS each: 20 warm
+    substeps (Reach's welded Panda, with and without a gravity vector, and
+    MyCobot), one cold substep (ReachAO), one cold substep with tau_ext (the
+    facade's bodies beside obstacles), one warm substep with tau_ext (the
+    contact tasks of both Pandas).  Operations are counted on the plain
+    version's trace, bytes as each launch reads and writes them.  Returns
+    {(kind, chain): (ms, plain_ms, bound_ms, ops, bytes)}."""
+    out = {}
+    for kind, key, n_sub, warm, with_tau, grav in B1_KINDS:
+        model = models[key]
+        n = model.ndof
+        k1 = CD.make_cuda_motor_steps(model, n_substeps=n_sub, dt=DT,
+                                      ctrl_mode=0, warm_start=warm,
+                                      gravity=grav)
+        q, qd, tgt = motor_inputs(model, 1, 0, rng, dev)
+        if with_tau:
+            tau1 = torch.full((1, n), 10.0)
+            w1 = ((torch.zeros(1, n, dtype=torch.bool), torch.ones(1, n))
+                  if warm else None)
+            ops = count_plain_ops(model, 0, step=lambda a, b, c:
+                                  k1.plain_substep(a, b, c, tau1, w1))
+            tau = 10.0 * torch.randn(1, n, device=dev)
+            w = k1.seed(q, qd, tgt) if warm else None
+            ms = time_cuda(lambda: k1.substep(q, qd, tgt, tau, w), 20,
+                           queued=True)
+            p_ms = time_cuda(lambda: k1.plain_substep(q, qd, tgt, tau, w),
+                             1, warmup=1)
+            nbytes = k1_substep_bytes(n) if warm else 6 * 4 * n
+        else:
+            ops = count_plain_ops(model, 0, n_substeps=n_sub,
+                                  warm_start=warm, step=k1.plain)
+            ms = time_cuda(lambda: k1(q, qd, tgt), 20, queued=True)
+            p_ms = time_cuda(lambda: k1.plain(q, qd, tgt), 1, warmup=1)
+            nbytes = k1_bytes(n)
+        bound = k1_bound_ms(ops, 1, nbytes)
+        out[kind, key] = (ms, p_ms, bound, ops, nbytes)
+        say(f"phase 14 K1 B=1 {kind} ({key}): {ms:.4f} ms/launch, bound "
+            f"{bound:.3e} ms ({ops} fp32 ops, {nbytes} bytes), "
+            f"{ms / bound:.0f}x the bound; plain version {p_ms:.1f} ms | "
+            f"{card}")
+    return out
+
+
+def phase14(CD, _hi_prec, model, rng, dev, card):
+    """Phase 14; returns what the kernels line needs."""
+    t0 = time.perf_counter()
+    gravity_err = check_gravity_k1(CD, model, rng, dev, card)
+    golden = bullet_goldens(dev, card)
+    adapters = drive_adapters(CD, _hi_prec, dev, card)
+    vector = drive_vector(CD, dev, card)
+    facade = drive_facade(dev, card)
+    from panda_gym_tpu_torch.models.mycobot import make_mycobot_model
+    from panda_gym_tpu_torch.models.panda import make_panda_model
+    times = k1_times_b1(CD, {"panda7": model,
+                             "mycobot": make_mycobot_model(),
+                             "panda9": make_panda_model(gripper="prismatic")},
+                        rng, dev, card)
+    say(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
+    return gravity_err, golden, adapters, vector, facade, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", metavar="ROOT",
@@ -3785,6 +4227,10 @@ def main():
     pop, pop_times, off, ppo, distill, reach_times = phase13(CD, root, rng,
                                                              dev, card)
 
+    # --------------------------------------------------------------- 14
+    grav_err, golden, adapters, vector, facade, b1 = phase14(
+        CD, _hi_prec, model, rng, dev, card)
+
     def bound_by(ops, bytes_per_env=K1_BYTES):
         return ("operations" if float(ops) / PEAK_FP32_OPS
                 > bytes_per_env / PEAK_BYTES else "bytes")
@@ -3892,6 +4338,67 @@ def main():
         f"(collect_labeled with the routed generalist on reachao1), "
         f"{KERNEL_NAMES[CD.LANES]} (B={EVAL_EPISODES})", distill[0],
         distill[1], *tr_times[EVAL_EPISODES], ao_ops))
+    # phase 14: the per-env entry points (B = 1), the vector adapter, the
+    # stateful Simulation
+    def b1_row(what, kind, key, names, kernel):
+        n = sum(adapters[c][0] for c in names)
+        e = max(adapters[c][2] for c in names)
+        ms, p_ms, bound, ops, nbytes = b1[kind, key]
+        return k1_row(f"{kernel}, {what} (B=1)", n, e, ms, p_ms, bound, ops,
+                      nbytes)
+
+    rows.append(b1_row(
+        "20 warm substeps on the single-env adapters of Reach and "
+        "ReachChecker (one launch per step)", "warm20", "panda7",
+        ("PandaReachEnv", "PandaReachCheckerEnv"),
+        "K1 motor_steps_lanes_kernel"))
+    rows.append(b1_row(
+        "20 warm substeps on the single-env adapter of MyCobotReach",
+        "warm20", "mycobot", ("MyCobotReachEnv",),
+        "K1 motor_steps_thread_kernel<MyCobotChain>"))
+    rows.append(b1_row(
+        "one warm substep with tau_ext on the single-env adapters of Push "
+        "and Slide (a seed and 20 substeps per step)", "warm1 tau", "panda7",
+        ("PandaPushEnv", "PandaSlideEnv"), "K1 motor_steps_lanes_kernel"))
+    rows.append(b1_row(
+        "one warm substep with tau_ext on the single-env adapters of "
+        "PickAndPlace, Stack and Flip (a seed and 20 substeps per step)",
+        "warm1 tau", "panda9",
+        ("PandaPickAndPlaceEnv", "PandaStackEnv", "PandaFlipEnv"),
+        "K1 motor_steps_thread_kernel<GripperPandaChain>"))
+    rows.append(b1_row(
+        "n_substeps=1, cold, on the single-env adapter of ReachAO "
+        "(reachao1)", "cold1", "panda7", ("PandaReachAOEnv",),
+        "K1 motor_steps_lanes_kernel"))
+    B_V, n_v, _, _, _ = vector["reach"]
+    rows.append(k1_row(
+        f"K1 motor_steps_thread_kernel, 20 warm substeps on the vector "
+        f"adapter of Reach through an autoreset (B={B_V})", n_v, err[CD.THREAD],
+        times[B_V, CD.THREAD], plain_ms[B_V], k1_bound_ms(n_ops, B_V),
+        n_ops))
+    B_V, n_v, _, _, _ = vector["reachao"]
+    rows.append(k1_row(
+        f"K1 at n_substeps=1, cold, on the vector adapter of ReachAO "
+        f"(reachao1) through an autoreset, {KERNEL_NAMES[CD.LANES]} "
+        f"(B={B_V})", n_v, ao_err[B_MAIN], *ao_times[B_V], ao_ops))
+    ms, p_ms, bound, ops, nbytes = b1["warm20", "panda7"]
+    rows.append(k1_row(
+        "K1 motor_steps_lanes_kernel, 20 warm substeps with the force clamps "
+        "of control_joints, on Simulation's Bullet golden step (B=1)",
+        golden[0], golden[1], ms, p_ms, bound, ops, nbytes))
+    ms, p_ms, bound, ops, nbytes = b1["warm20 gravity", "panda7"]
+    n, _, e, _ = facade["gravity (0, 0, -1.62)"]
+    rows.append(k1_row(
+        "K1 motor_steps_lanes_kernel, 20 warm substeps with a gravity "
+        "vector, on Simulation(gravity=(0, 0, -1.62)) (B=1; timed and held "
+        f"at gravity {GRAVITY} too)", n, max(e, grav_err), ms, p_ms, bound,
+        ops, nbytes))
+    ms, p_ms, bound, ops, nbytes = b1["cold1 tau", "panda7"]
+    n, _, e, _ = facade["body and moving obstacle"]
+    rows.append(k1_row(
+        "K1 motor_steps_lanes_kernel, one cold substep with tau_ext, on "
+        "Simulation with a free body beside a moving obstacle (20 per step)"
+        " (B=1)", n, e, ms, p_ms, bound, ops, nbytes))
     say(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

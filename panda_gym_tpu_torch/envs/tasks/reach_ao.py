@@ -15,9 +15,9 @@ The pose randomizers (``random_base``, and ``torus``, ``ik_goal``,
 ``ik_sphere`` and ``ik_range``, which IK every target of a reset in one
 batched ``dls_ik`` call), the ``prior`` observation (the NEO command toward
 the goal, ops/neo.py, for the whole batch at once) and the multi-scene
-mixture core are ported.  The gym class waits for ROADMAP item 14 and
-raises NotImplementedError.  Like the JAX package, ``make_core`` does not
-build ReachAO: ``make_reach_ao_core`` does.
+mixture core are ported.  ``PandaReachAOEnv`` is one env of it with the
+gymnasium surface (envs/core.py::EnvAdapter).  Like the JAX package,
+``make_core`` does not build ReachAO: ``make_reach_ao_core`` does.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from panda_gym_tpu_torch.envs.core import RobotTaskEnv, Task
+from panda_gym_tpu_torch.envs.core import EnvAdapter, RobotTaskEnv, Task
 from panda_gym_tpu_torch.envs.robot import PandaConfig, PandaRobot
 from panda_gym_tpu_torch.models import panda_constants as pc
 from panda_gym_tpu_torch.ops import contact as C
@@ -1064,10 +1064,14 @@ def make_reach_ao_mixture_core(scenarios, config: Optional[TrainConfig] = None,
         for s in scenarios])
 
 
-class PandaReachAOEnv:
-    """The gymnasium class (reach_ao.py:979-990) waits for the gym surface."""
+class PandaReachAOEnv(EnvAdapter):
+    """One ReachAO env with the gymnasium surface (reach_ao.py:979-986);
+    envs/gym_envs.py has its gymnasium.Env."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PandaReachAOEnv waits for the gym surface (ROADMAP item 14); "
-            "make_reach_ao_core builds the batched env")
+    def __init__(self, render: bool = False, ee_error_threshold: float = 0.05,
+                 speed_threshold: float = 0.1, scenario: str = "reachao1",
+                 config: Optional[TrainConfig] = None, device="cuda", **kw):
+        super().__init__(make_reach_ao_core(
+            scenario=scenario, config=config,
+            ee_error_threshold=ee_error_threshold,
+            speed_threshold=speed_threshold, device=device))

@@ -1,6 +1,7 @@
-"""Rotation helpers (port of the part of panda_gym_tpu/math/transforms.py
-that the Reach family and the free-body tasks call).  Quaternions are
-(x, y, z, w), euler angles extrinsic XYZ, as in the JAX module."""
+"""Rotation and rigid-transform helpers (port of
+panda_gym_tpu/math/transforms.py).  Quaternions are (x, y, z, w), euler
+angles extrinsic XYZ, rotation matrices world_R_body, as in the JAX module;
+every function broadcasts over leading batch dimensions."""
 import torch
 
 
@@ -73,3 +74,95 @@ def quat_integrate(q, omega, dt):
     inv_n = 1.0 / torch.sqrt(torch.clamp_min(
         (sq[..., 0] + sq[..., 1]) + (sq[..., 2] + sq[..., 3]), 1e-9))
     return inv_n[..., None] * qn
+
+
+def quat_conj(q):
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quat_rotate(q, v):
+    """Rotate vectors v (..., 3) by quaternions q (..., 4)."""
+    qv = q[..., :3]
+    w = q[..., 3:4]
+    t = 2.0 * torch.linalg.cross(qv.expand_as(v), v)
+    return v + w * t + torch.linalg.cross(qv.expand_as(t), t)
+
+
+def quat_rotate_inv(q, v):
+    return quat_rotate(quat_conj(q), v)
+
+
+def quat_from_axis_angle(axis, angle):
+    """axis: (..., 3) unit vectors, angle: (...)."""
+    half = 0.5 * angle
+    return torch.cat([axis * torch.sin(half)[..., None],
+                      torch.cos(half)[..., None]], -1)
+
+
+def mat_to_quat(m):
+    """Rotation matrices (..., 3, 3) -> quaternions (..., 4) xyzw: of the
+    four candidates, one per dominant component, the one whose component
+    is largest (Shepperd's selection, branch-free), normalized."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    qw = torch.stack([m21 - m12, m02 - m20, m10 - m01,
+                      1.0 + m00 + m11 + m22], -1)
+    qx = torch.stack([1.0 + m00 - m11 - m22, m10 + m01, m02 + m20,
+                      m21 - m12], -1)
+    qy = torch.stack([m10 + m01, 1.0 - m00 + m11 - m22, m21 + m12,
+                      m02 - m20], -1)
+    qz = torch.stack([m02 + m20, m21 + m12, 1.0 - m00 - m11 + m22,
+                      m10 - m01], -1)
+    trace = m00 + m11 + m22
+    best = torch.argmax(torch.stack([m00, m11, m22, trace], -1), -1)
+    cands = torch.stack([qx, qy, qz, qw], -2)            # (..., 4, 4)
+    q = torch.gather(cands, -2, best[..., None, None].expand(
+        best.shape + (1, 4)))[..., 0, :]
+    return quat_normalize(q)
+
+
+def quat_from_euler(rpy):
+    """Extrinsic XYZ euler (roll, pitch, yaw) -> quaternion (x, y, z, w), as
+    pybullet.getQuaternionFromEuler."""
+    r, p, y = rpy[..., 0] * 0.5, rpy[..., 1] * 0.5, rpy[..., 2] * 0.5
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], -1)
+
+
+# rigid transforms as (R, p) pairs: R (..., 3, 3), p (..., 3)
+
+def _mv(R, v):
+    return (R * v[..., None, :]).sum(-1)
+
+
+def rt_compose(Ra, pa, Rb, pb):
+    """(Ra, pa) o (Rb, pb): first apply b in a's frame."""
+    return Ra @ Rb, pa + _mv(Ra, pb)
+
+
+def rt_apply(R, p, v):
+    return _mv(R, v) + p
+
+
+def rt_inv(R, p):
+    Rt = R.transpose(-1, -2)
+    return Rt, -_mv(Rt, p)
+
+
+def skew(v):
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1),
+    ], -2)

@@ -179,6 +179,8 @@ struct ArgsT {
   float comp_mp[ND];    // CRBA: mass of the parent's composite as link d joins it
                         // (last, so that the lane-group kernel's block keeps
                         // the layout it had before the chains)
+  float base_acc[3];    // RNEA: the base's acceleration, -gravity; (0, 0, 9.81)
+                        // unless the launch gives a gravity vector
 };
 using Args = ArgsT<N>;
 
@@ -426,7 +428,8 @@ __device__ __forceinline__ void bias_and_mass(const Args& a, const Lane& me, Scr
                                               const float (&qd)[N], float (&tau)[N]) {
   const Model& m = a.m;
   const int role = me.l < 4 ? me.l : 3;
-  V3 X = {0.f, 0.f, role == 3 ? 9.81f : 0.f};  // base accel = -g
+  // base accel = -g on the lane of av, zero on the others
+  V3 X = role == 3 ? V3{a.base_acc[0], a.base_acc[1], a.base_acc[2]} : V3{0.f, 0.f, 0.f};
   V3 cc = load3(m.com[N - 1]);
   V3 Ir = load3(s.I0[me.r][N - 1]);
 #pragma unroll
@@ -815,12 +818,12 @@ __device__ __forceinline__ V3 joint_p(const ModelT<C::N>& m, const V3 (&P)[C::N]
 template <class C>
 __device__ __forceinline__ void rnea_bias(const ModelT<C::N>& m, const M3 (&R)[C::N],
                                           const V3 (&P)[C::N], const float (&qd)[C::N],
-                                          float (&tau)[C::N]) {
+                                          const V3 base_acc, float (&tau)[C::N]) {
   constexpr int ND = C::N;
   V3 fn[ND], ff[ND];
   if constexpr (C::serial) {
     V3 om_p = {0.f, 0.f, 0.f}, v_p = {0.f, 0.f, 0.f};
-    V3 aom_p = {0.f, 0.f, 0.f}, av_p = {0.f, 0.f, 9.81f};  // base accel = -g
+    V3 aom_p = {0.f, 0.f, 0.f}, av_p = base_acc;  // base accel = -g
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
       const V3 p = load3(m.Xp[d]);
@@ -851,7 +854,7 @@ __device__ __forceinline__ void rnea_bias(const ModelT<C::N>& m, const M3 (&R)[C
       const V3 zero = {0.f, 0.f, 0.f};
       const V3 om_p = pd < 0 ? zero : om[pi], v_p = pd < 0 ? zero : v[pi];
       const V3 aom_p = pd < 0 ? zero : aom[pi];
-      const V3 av_p = pd < 0 ? V3{0.f, 0.f, 9.81f} : av[pi];  // base accel = -g
+      const V3 av_p = pd < 0 ? base_acc : av[pi];  // base accel = -g
       const V3 p = joint_p<C>(m, P, d);
       V3 o = mtv(R[d], om_p);
       V3 vv = mtv(R[d], vadd(v_p, vcross(om_p, p)));
@@ -990,7 +993,7 @@ __device__ __forceinline__ void thread_substep(const ArgsT<C::N>& a, float (&q)[
   joint_frames<C>(m, q, R, P);
 
   float bias[ND], M[ND][ND];
-  rnea_bias<C>(m, R, P, qd, bias);
+  rnea_bias<C>(m, R, P, qd, V3{a.base_acc[0], a.base_acc[1], a.base_acc[2]}, bias);
   crba<C>(a, R, P, M);
 
   float L[ND][ND], inv[ND], rhs[ND], fv[ND];
@@ -1106,7 +1109,8 @@ motor_steps_thread_kernel(const float* __restrict__ q_in, const float* __restric
 // Panda, link d into link d-1).
 template <class C>
 void fill_args(ArgsT<C::N>& a, const float* model, int n_substeps, double dt, int ctrl_mode,
-               double position_gain, int cold_iters, int warm_iters, int warm, int seed) {
+               double position_gain, int cold_iters, int warm_iters, int warm, int seed,
+               const float* gravity) {
   constexpr int ND = C::N;
   memcpy(&a.m, model, sizeof(ModelT<ND>));
   for (int d = 0; d < ND; ++d) {
@@ -1130,6 +1134,10 @@ void fill_args(ArgsT<C::N>& a, const float* model, int n_substeps, double dt, in
   a.warm_iters = warm_iters;
   a.warm = warm;
   a.seed = seed;
+  // without a gravity vector, the constants the kernel had before it took one
+  a.base_acc[0] = gravity == nullptr ? 0.0f : -gravity[0];
+  a.base_acc[1] = gravity == nullptr ? 0.0f : -gravity[1];
+  a.base_acc[2] = gravity == nullptr ? 9.81f : -gravity[2];
 }
 
 // One launch of the one-env-per-thread kernel of chain C.
@@ -1137,10 +1145,10 @@ template <class C>
 int launch_chain(const float* q, const float* qd, const float* tgt, float* q_out,
                  float* qd_out, int B, const float* model, int n_substeps, double dt,
                  int ctrl_mode, double position_gain, int cold_iters, int warm_iters,
-                 void* stream, int warm, const Carry& c, int seed) {
+                 void* stream, int warm, const Carry& c, int seed, const float* gravity) {
   ArgsT<C::N> a;
   fill_args<C>(a, model, n_substeps, dt, ctrl_mode, position_gain, cold_iters, warm_iters,
-               warm, seed);
+               warm, seed, gravity);
   if (B > 0) {
     const int blocks = (B + THREADS - 1) / THREADS;
     motor_steps_thread_kernel<C><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -1172,7 +1180,8 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
                                   int device, void* stream, int lanes_per_env, int warm,
                                   const float* tau, const unsigned char* sat_in,
                                   const float* sign_in, unsigned char* sat_out,
-                                  float* sign_out, int seed, int chain) {
+                                  float* sign_out, int seed, int chain,
+                                  const float* gravity) {
   if (chain < 0 || chain >= N_CHAINS || (lanes_per_env != LANES && lanes_per_env != 1) ||
       (lanes_per_env == LANES && chain != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1185,7 +1194,7 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
   if (lanes_per_env == LANES) {
     Args a;
     fill_args<PandaChain>(a, model, n_substeps, dt, ctrl_mode, position_gain, cold_iters,
-                          warm_iters, warm, seed);
+                          warm_iters, warm, seed, gravity);
     if (B > 0) {
       const int blocks = (B + GROUPS - 1) / GROUPS;
       motor_steps_lanes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -1196,14 +1205,14 @@ extern "C" int motor_steps_launch(const float* q, const float* qd, const float* 
   if (chain == 0)
     return launch_chain<PandaChain>(q, qd, tgt, q_out, qd_out, B, model, n_substeps, dt,
                                     ctrl_mode, position_gain, cold_iters, warm_iters, stream,
-                                    warm, c, seed);
+                                    warm, c, seed, gravity);
   if (chain == 1)
     return launch_chain<MyCobotChain>(q, qd, tgt, q_out, qd_out, B, model, n_substeps, dt,
                                       ctrl_mode, position_gain, cold_iters, warm_iters, stream,
-                                      warm, c, seed);
+                                      warm, c, seed, gravity);
   return launch_chain<GripperPandaChain>(q, qd, tgt, q_out, qd_out, B, model, n_substeps, dt,
                                          ctrl_mode, position_gain, cold_iters, warm_iters,
-                                         stream, warm, c, seed);
+                                         stream, warm, c, seed, gravity);
 }
 
 // Number of floats the model table of chain `chain` must hold (checked by

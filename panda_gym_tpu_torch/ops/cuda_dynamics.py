@@ -89,10 +89,12 @@ CHAINS = {
 PANDA = 0
 
 
-def pack_model(model: ChainModel) -> np.ndarray:
-    """The model tables in the order of ``struct Model`` in motor_steps.cu."""
+def pack_model(model: ChainModel, effort=None) -> np.ndarray:
+    """The model tables in the order of ``struct Model`` in motor_steps.cu;
+    ``effort`` (ndof floats) replaces the model's motor force clamps."""
+    effort = model.effort if effort is None else effort
     parts = [model.X_R, model.X_p, model.axis, model.mass, model.com,
-             model.inertia, model.q_lo, model.q_hi, model.effort,
+             model.inertia, model.q_lo, model.q_hi, effort,
              model.vel_limit]
     return np.ascontiguousarray(np.concatenate(
         [np.asarray(a, np.float32).reshape(-1) for a in parts]))
@@ -117,7 +119,8 @@ def _bind(lib: ctypes.CDLL):
                    ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-                  + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int])
+                  + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.motor_steps_model_floats.argtypes = [ctypes.c_int]
     lib.motor_steps_model_floats.restype = ctypes.c_int
@@ -164,21 +167,38 @@ class CudaMotorSteps:
 
     ``launches`` counts kernel launches, and nothing else;
     ``kernel_launches`` splits them by kernel (``LANES``, ``THREAD``).
-    ``chain`` is the model's chain id (``CHAINS``)."""
+    ``chain`` is the model's chain id (``CHAINS``).
+
+    ``gravity`` (3 floats) replaces (0, 0, -9.81) in the RNEA bias, and
+    ``effort`` (ndof floats) the model's motor force clamps, as the JAX
+    package's per-env ``motor_substep`` takes them (the stateful
+    ``Simulation``'s gravity and ``control_joints`` forces).  Both are fixed
+    per wrapper: the kernel reads the gravity at each launch from a host
+    array, and the clamps from the model table.  Without a gravity the
+    launch passes a null pointer, which keeps the kernel's constants and
+    so its bits."""
 
     def __init__(self, model: ChainModel, *, n_substeps: int, dt: float,
-                 ctrl_mode: int, warm_start: bool):
+                 ctrl_mode: int, warm_start: bool, gravity=None, effort=None):
         self.chain = chain_id(model)
         self.ndof = model.ndof
         self.n_substeps = int(n_substeps)
         self.dt = float(dt)
         self.ctrl_mode = int(ctrl_mode)
         self.warm_start = bool(warm_start)
+        # the clamps as float32, the width the kernel's table holds them at
+        self.effort = (None if effort is None else tuple(
+            float(e) for e in np.asarray(effort, np.float32)))
+        self.gravity = (None if gravity is None else tuple(
+            float(g) for g in np.asarray(gravity, np.float32)))
+        self._gravity = (None if gravity is None
+                         else np.asarray(gravity, np.float32).copy())
         self.plain = S.make_batched_motor_steps(
             model, n_substeps=n_substeps, dt=dt, ctrl_mode=ctrl_mode,
-            warm_start=self.warm_start)
+            warm_start=self.warm_start, gravity=self.gravity,
+            effort=self.effort)
         self.mc = S.consts_from_model(model)
-        self._table = pack_model(model)
+        self._table = pack_model(model, self.effort)
         self._fn = None
         self.launches = 0
         self.kernel_launches = {LANES: 0, THREAD: 0}
@@ -224,6 +244,14 @@ class CudaMotorSteps:
                              warm_out=warm_out)
         return q, qd, warm_out
 
+    def _physics(self):
+        kw = {}
+        if self.gravity is not None:
+            kw["gravity"] = self.gravity
+        if self.effort is not None:
+            kw["effort"] = self.effort
+        return kw
+
     def _cols(self, *ts):
         return [[t[:, d] for d in range(self.ndof)] for t in ts]
 
@@ -231,7 +259,7 @@ class CudaMotorSteps:
         """``seed``'s plain version, on any device."""
         _, _, (sat, sign) = S.motor_substep(
             self.mc, *self._cols(q, qd, target), self.dt, self.ctrl_mode,
-            return_warm=True)
+            return_warm=True, **self._physics())
         return torch.stack(sat, -1), torch.stack(sign, -1)
 
     def plain_substep(self, q, qd, target, tau_ext=None, warm=None):
@@ -240,11 +268,12 @@ class CudaMotorSteps:
         tau = None if tau_ext is None else self._cols(tau_ext)[0]
         if warm is None:
             q2, qd2 = S.motor_substep(self.mc, q_, qd_, tgt_, self.dt,
-                                      self.ctrl_mode, tau_ext=tau)
+                                      self.ctrl_mode, tau_ext=tau,
+                                      **self._physics())
             return torch.stack(q2, -1), torch.stack(qd2, -1), None
         q2, qd2, (sat, sign) = S.motor_substep(
             self.mc, q_, qd_, tgt_, self.dt, self.ctrl_mode, tau_ext=tau,
-            warm=tuple(self._cols(*warm)))
+            warm=tuple(self._cols(*warm)), **self._physics())
         return (torch.stack(q2, -1), torch.stack(qd2, -1),
                 (torch.stack(sat, -1), torch.stack(sign, -1)))
 
@@ -306,7 +335,8 @@ class CudaMotorSteps:
             self.ctrl_mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
             D.MOTOR_LCP_WARM_ITERS, q.device.index, stream, lanes_per_env,
             int(warm), ptr(tau_ext), ptr(w_in[0]), ptr(w_in[1]),
-            ptr(w_out[0]), ptr(w_out[1]), int(seed), self.chain)
+            ptr(w_out[0]), ptr(w_out[1]), int(seed), self.chain,
+            None if self._gravity is None else self._gravity.ctypes.data)
         if err != 0:
             raise RuntimeError(f"K1 launch failed: cudaError {err}")
         self.launches += 1
@@ -315,8 +345,9 @@ class CudaMotorSteps:
 
 
 def make_cuda_motor_steps(model: ChainModel, *, n_substeps: int, dt: float,
-                          ctrl_mode: int, warm_start: bool
-                          ) -> CudaMotorSteps:
+                          ctrl_mode: int, warm_start: bool, gravity=None,
+                          effort=None) -> CudaMotorSteps:
     """Same contract as scalarized.make_batched_motor_steps."""
     return CudaMotorSteps(model, n_substeps=n_substeps, dt=dt,
-                          ctrl_mode=ctrl_mode, warm_start=warm_start)
+                          ctrl_mode=ctrl_mode, warm_start=warm_start,
+                          gravity=gravity, effort=effort)

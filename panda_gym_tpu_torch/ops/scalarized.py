@@ -477,7 +477,8 @@ def cholesky_solve(M, b, eps: float = 1e-9):
 
 def motor_substep(mc: ModelConsts, q, qd, target, dt: float, control_mode: int,
                   position_gain: float = POSITION_GAIN, tau_ext=None,
-                  warm=None, return_warm: bool = False):
+                  warm=None, return_warm: bool = False,
+                  gravity=(0.0, 0.0, -9.81), effort=None):
     """One semi-implicit Euler substep with PyBullet motor semantics over
     component lists; numerically identical to dynamics.py:motor_substep
     and to panda_gym_tpu/ops/scalarized.py:motor_substep
@@ -487,7 +488,11 @@ def motor_substep(mc: ModelConsts, q, qd, target, dt: float, control_mode: int,
     ``warm=(sat, sign)`` — component lists carried from the previous
     substep — runs MOTOR_LCP_WARM_ITERS refinements from that active set
     (mirrors dynamics.py); with warm given (or return_warm) the return is
-    (q, qd, (sat, sign))."""
+    (q, qd, (sat, sign)).  ``gravity`` (3 floats) enters the RNEA bias and
+    ``effort`` (ndof floats, default the model's) sets the motor impulse
+    caps effort * dt, as dynamics.py:motor_substep takes them; both fold as
+    constants, and their defaults give the bits of the version without
+    them."""
     ndof = mc.ndof
     inv_dt = 1.0 / dt
     if control_mode == CTRL_POSITION:
@@ -499,15 +504,16 @@ def motor_substep(mc: ModelConsts, q, qd, target, dt: float, control_mode: int,
     v_des = [_clip(v_des[d], -mc.vel_limit[d], mc.vel_limit[d])
              for d in range(ndof)]
 
-    bias = rnea(mc, q, qd, [0.0] * ndof)
+    bias = rnea(mc, q, qd, [0.0] * ndof, gravity)
     M = crba(mc, q)
     if tau_ext is None:
         tau_ext = [0.0] * ndof
+    eff = mc.effort if effort is None else tuple(float(e) for e in effort)
 
     # free velocity: one substep under bias/external forces, motors off
     fv = cholesky_solve(M, [sub(tau_ext[i], bias[i]) for i in range(ndof)])
     qd_free = [add(qd[d], mul(dt, fv[d])) for d in range(ndof)]
-    cap = [mul(dt, mc.effort[d]) for d in range(ndof)]
+    cap = [mul(dt, eff[d]) for d in range(ndof)]
 
     def matvec(vec):
         out = []
@@ -565,8 +571,10 @@ def motor_substep(mc: ModelConsts, q, qd, target, dt: float, control_mode: int,
 
 
 def make_batched_motor_steps(model: ChainModel, *, n_substeps: int, dt: float,
-                             ctrl_mode: int, warm_start=None):
-    """Batched n-substep robot physics: (B, ndof) in/out.
+                             ctrl_mode: int, warm_start=None,
+                             gravity=None, effort=None):
+    """Batched n-substep robot physics: (B, ndof) in/out.  ``gravity`` and
+    ``effort`` as motor_substep takes them (None: the defaults).
 
     warm_start: carry the LCP active set across substeps (cold pre-solve +
     MOTOR_LCP_WARM_ITERS refinements each, the default) or run the cold
@@ -577,6 +585,11 @@ def make_batched_motor_steps(model: ChainModel, *, n_substeps: int, dt: float,
         warm_start = D.lcp_warm_default(True)
     mc = consts_from_model(model)
     ndof = mc.ndof
+    kw = {}
+    if gravity is not None:
+        kw["gravity"] = tuple(float(g) for g in gravity)
+    if effort is not None:
+        kw["effort"] = tuple(float(e) for e in effort)
 
     def step(q, qd, target):
         tgt = [target[:, d] for d in range(ndof)]
@@ -584,16 +597,16 @@ def make_batched_motor_steps(model: ChainModel, *, n_substeps: int, dt: float,
         qdc = [qd[:, d] for d in range(ndof)]
         if not warm_start:
             for _ in range(n_substeps):
-                qc, qdc = motor_substep(mc, qc, qdc, tgt, dt, ctrl_mode)
+                qc, qdc = motor_substep(mc, qc, qdc, tgt, dt, ctrl_mode, **kw)
             return torch.stack(qc, dim=-1), torch.stack(qdc, dim=-1)
 
         # cold pre-solve seeds the warm active set; every substep then runs
         # the warm refinement
         _, _, warm = motor_substep(mc, qc, qdc, tgt, dt, ctrl_mode,
-                                   return_warm=True)
+                                   return_warm=True, **kw)
         for _ in range(n_substeps):
             qc, qdc, warm = motor_substep(mc, qc, qdc, tgt, dt, ctrl_mode,
-                                          warm=warm)
+                                          warm=warm, **kw)
         return torch.stack(qc, dim=-1), torch.stack(qdc, dim=-1)
 
     return step

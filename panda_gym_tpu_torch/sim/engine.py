@@ -1,20 +1,29 @@
 """Batched physics step and per-env-group distances (port of
-panda_gym_tpu/sim/engine.py:38-124 and :163-259, of make_batched_physics_step,
-:440-523, and of the check_collision branch of make_physics_step, :260-438,
-batched).
+panda_gym_tpu/sim/engine.py: the contact forces, :38-160, the group
+distances, :163-259, make_physics_step, :262-438, and
+make_batched_physics_step, :440-523, as one batched engine).
 
-For configurations whose per-substep work is robot-only (no free bodies, no
-contact, no per-substep collision check: Reach and friends) the motor
+For configurations whose per-substep work is robot-only (no free bodies,
+no contact, no per-substep collision check: Reach and friends) the motor
 dynamics run through kernel K1 (``ops/cuda_dynamics.py``) on the card, or
 its plain version for CPU tensors.  Moving obstacles advance by their
 velocity over the policy step.  The ReachAO configuration (a collision
 check after every substep) runs ``CollisionPhysics``: K1 once per substep
 on the card, and the group distances below, which the observations use
-too.  Free bodies (Push, Slide, PickAndPlace, Stack, Flip) run
+too.  Free bodies (Push, Slide, PickAndPlace, Stack, Flip, and the
+stateful Simulation's bodies, also beside obstacles) run
 ``ContactPhysics``: penalty contact against the ground, the robot's
-capsules and the other bodies, the reaction J^T f on the arm, and K1 once
-per substep with that torque (ops/scalarized_contact.py:135-463 of the JAX
-package, in tensor form).
+capsules and the other bodies, the reaction J^T f on the arm, K1 once per
+substep with that torque (ops/scalarized_contact.py:135-463 of the JAX
+package, in tensor form), and the obstacles' advance and collision check
+where there are obstacles.
+
+The JAX package's per-env step (``make_physics_step``) and its batched one
+are built to agree; here one engine serves both.  The per-env entry
+points (``RobotTaskEnv.step``, the single-env adapters, ``Simulation``)
+build their step with ``per_env=True`` and the per-env arguments
+(``timestep``, ``gravity``, ``effort``): those steps honour the motor-LCP
+mode of ``ops.dynamics.set_lcp_mode``.
 """
 from __future__ import annotations
 
@@ -304,14 +313,124 @@ def _cap_support(model: ChainModel, device):
     return T["cap_support"]
 
 
-class ContactPhysics:
+def _keep(frozen, old, new):
+    """``old`` where the env is frozen ((B,) bools), else ``new``."""
+    return torch.where(frozen.view((-1,) + (1,) * (new.dim() - 1)), old, new)
+
+
+class _Physics:
+    """What the three physics steps share: the motor substep's constants
+    (``dt``, ``gravity``, ``effort``) and its route.
+
+    ``gravity`` (3 floats, None for (0, 0, -9.81)) and ``effort`` (ndof
+    floats, None for the model's motor force clamps) are those of the JAX
+    package's per-env step (sim/engine.py:262-297), which the stateful
+    ``Simulation`` sets.  ``per_env``: the step serves a per-env entry point
+    (``RobotTaskEnv.step``, ``GymAdapter``, ``Simulation``), which honours
+    ``dynamics.set_lcp_mode("pgs")`` as the JAX package's per-env path does:
+    under "pgs" its motor substeps run the plain projected Gauss-Seidel
+    solve (``dynamics.motor_substep``) on any device, since no TPU kernel
+    computes PGS, and K1 stays the exact solve.  The batched training and
+    evaluation steps (``per_env`` False) ignore the mode."""
+
+    def __init__(self, model: ChainModel, *, n_substeps: int, ctrl_mode: int,
+                 timestep: float, gravity, effort, per_env: bool):
+        self.model = model
+        self.n_substeps = n_substeps
+        self.ctrl_mode = ctrl_mode
+        self.dt = float(timestep)
+        self.gravity = None if gravity is None else tuple(
+            float(g) for g in np.asarray(gravity, np.float32))
+        self.effort = None if effort is None else np.asarray(effort,
+                                                             np.float32)
+        self.per_env = bool(per_env)
+
+    def _motor(self, n_substeps: int, warm_start: bool):
+        return make_cuda_motor_steps(
+            self.model, n_substeps=n_substeps, dt=self.dt,
+            ctrl_mode=self.ctrl_mode, warm_start=warm_start,
+            gravity=self.gravity, effort=self.effort)
+
+    @property
+    def pgs(self) -> bool:
+        """Whether this step runs the PGS motor solve now."""
+        return self.per_env and D.LCP_MODE == "pgs"
+
+    @property
+    def route(self) -> str:
+        """"k1" (the exact solve: K1 on the card, its plain version on the
+        CPU) or "pgs" (plain PyTorch on any device)."""
+        return "pgs" if self.pgs else "k1"
+
+    def pgs_substep(self, q, qd, tgt, tau_ext=None, warm=None):
+        """One PGS motor substep, (q, qd, None): the substep signature of
+        the K1 wrapper's, the carried set unused (PGS keeps none)."""
+        kw = {} if self.gravity is None else {"gravity": self.gravity}
+        q, qd = D.motor_substep(self.model, q, qd, tgt, self.dt,
+                                self.ctrl_mode, tau_ext=tau_ext,
+                                effort=self.effort, **kw)
+        return q, qd, None
+
+    def _gravity_vec(self, like):
+        return _vec((0.0, 0.0, GRAVITY_Z) if self.gravity is None
+                    else self.gravity, like)
+
+
+class CollisionCheck:
+    """The collision check after a substep (engine.py:367-398): the
+    per-group distances to the obstacles and to the table at the moved
+    pose, and whether any group but 0 (panda_link1) comes within
+    ``safety_distance``."""
+
+    def __init__(self, model: ChainModel, scene: SceneParams,
+                 safety_distance: float = 0.0):
+        self.model = model
+        self.scene = scene
+        self.safety_distance = safety_distance
+        self._table = {}
+
+    def distances(self, q, states: EnvState):
+        """Per-group obstacle and table distances at pose q against the
+        obstacles of ``states``: (B, ngroup) x2, the table's without group 0
+        (panda_link1; group_table_distances)."""
+        model, far = self.model, MAX_DISTANCE
+        p0, p1 = K.capsule_endpoints_world(model, K.fk_world(model, q))
+        d, _, _ = capsule_obstacle_distances(model, p0, p1, states, far)
+        gd = group_min(model, torch.amin(d, dim=2), far)
+        dev = str(q.device)
+        if dev not in self._table:
+            self._table[dev] = [torch.as_tensor(v, device=q.device) for v in
+                                (self.scene.table_center,
+                                 self.scene.table_half)]
+        td = table_capsule_distances(model, p0, p1, *self._table[dev], far)
+        td = _skip(group_min(model, td, far), (0,), far)
+        return gd, td
+
+    def __call__(self, q, states: EnvState):
+        """(group obstacle distances (B, ngroup), hit (B,) bools)."""
+        gd, td = self.distances(q, states)
+        # skip group 0 (panda_link1); deep box penetrations already read as
+        # far upstream (Bullet convex-margin blindness); link1 distances
+        # stay in the per-link observation vector
+        least = torch.minimum(torch.amin(gd[:, 1:], dim=1),
+                              torch.amin(td, dim=1))
+        return gd, least <= self.safety_distance
+
+
+class ContactPhysics(_Physics):
     """``states -> states`` after one policy step of free-body physics
     (scalarized_contact.py:135-463, engine.py:294-365).  Per substep, in the
     reference's order: FK with velocities, the ground forces on every body,
     the robot's capsules against every body (forces, and the reaction
     tau_ext on the arm), the forces between the bodies of each pair in
     ``body_pairs`` (a's samples against b's volume), semi-implicit Euler of
-    the bodies, then the motor substep with tau_ext.
+    the bodies, the obstacles' advance by dt * velocity (``moving_obstacles``),
+    then the motor substep with tau_ext, and with ``check_collision`` the
+    collision check of the moved robot against the moved obstacles: the
+    group distances, the sticky flag, and the freeze of envs that collided
+    before the substep (``freeze_on_collision``), as engine.py:299-400 orders
+    them.  No task combines free bodies with obstacles; the stateful
+    ``Simulation`` does, with a box on the table beside an obstacle.
 
     The motor substep is K1 launched once per substep on a CUDA tensor (its
     wrapper ``motor``, whose ``launches`` count its runs), with tau_ext and,
@@ -319,26 +438,35 @@ class ContactPhysics:
     launch: 21 launches per step at 20 substeps; a CPU tensor runs the plain
     ``motor_substep``.  Nothing falls back from the one to the other.
 
-    warm_start: warm (the default, PANDA_LCP_WARM=0 turns it off), as
-    dynamics.lcp_warm_default resolves it: the seed, a cold solve of the
+    warm_start: warm without a collision check and cold with one (the
+    defaults of engine.py:make_physics_step; PANDA_LCP_WARM=0/1 overrides),
+    as dynamics.lcp_warm_default resolves it: the seed, a cold solve of the
     first substep's system, ignores tau_ext, so a set change that the
     contact causes lands one substep late, as in the reference."""
 
     def __init__(self, model: ChainModel, scene: SceneParams, *,
                  n_substeps: int, ctrl_mode: int, robot_contact: bool,
                  body_pairs: Sequence[Tuple[int, int]] = (),
-                 warm_start: Optional[bool] = None):
-        self.model = model
+                 warm_start: Optional[bool] = None,
+                 check_collision: bool = False,
+                 collision_safety_distance: float = 0.0,
+                 freeze_on_collision: bool = True,
+                 moving_obstacles: bool = False,
+                 timestep: float = TIMESTEP, gravity=None, effort=None,
+                 per_env: bool = False):
+        super().__init__(model, n_substeps=n_substeps, ctrl_mode=ctrl_mode,
+                         timestep=timestep, gravity=gravity, effort=effort,
+                         per_env=per_env)
         self.body_pairs = tuple((int(a), int(b)) for a, b in body_pairs)
         self.scene = scene
-        self.n_substeps = n_substeps
-        self.dt = TIMESTEP
         self.robot_contact = robot_contact
-        self.warm_start = (D.lcp_warm_default(True) if warm_start is None
-                           else bool(warm_start))
-        self.motor = make_cuda_motor_steps(
-            model, n_substeps=1, dt=TIMESTEP, ctrl_mode=ctrl_mode,
-            warm_start=False)
+        self.moving_obstacles = moving_obstacles
+        self.freeze_on_collision = freeze_on_collision
+        self.check = (CollisionCheck(model, scene, collision_safety_distance)
+                      if check_collision else None)
+        self.warm_start = (D.lcp_warm_default(not check_collision)
+                           if warm_start is None else bool(warm_start))
+        self.motor = self._motor(1, False)
 
     def forces(self, q, qd, pos, quat, vel, ang):
         """Contact forces and torques on the bodies, (B, nb, 3) each,
@@ -378,7 +506,7 @@ class ContactPhysics:
         inertia = _vec(self.scene.body_inertia[:nb], pos)     # (nb, 3)
         inv_i = _vec(1.0 / np.maximum(np.asarray(
             self.scene.body_inertia[:nb], np.float64), 1e-12), pos)
-        v = vel + dt * (force * inv_m + _vec([0.0, 0.0, GRAVITY_Z], pos))
+        v = vel + dt * (force * inv_m + self._gravity_vec(pos))
         p = pos + dt * v
         # I_w = (R diag(I)) R^T, then I_w om
         RI = R * inertia[:, None, :]
@@ -395,49 +523,82 @@ class ContactPhysics:
         motor's plain seed and substep on any device (the card checks hold
         K1 against it)."""
         motor = self.motor
-        seed = motor.plain_seed if plain else motor.seed
-        substep = motor.plain_substep if plain else motor.substep
+        if self.pgs:
+            seed, substep = None, self.pgs_substep
+        else:
+            seed = motor.plain_seed if plain else motor.seed
+            substep = motor.plain_substep if plain else motor.substep
         q = states.q.contiguous()
         qd = states.qd.contiguous()
         tgt = states.ctrl_target.contiguous()
         pos, quat = states.body_pos, states.body_quat
         vel, ang = states.body_vel, states.body_ang
-        warm = seed(q, qd, tgt) if self.warm_start else None
+        step_vel = self.dt * states.obstacle_vel
+        s = states
+        warm = seed(q, qd, tgt) if self.warm_start and seed else None
         for _ in range(self.n_substeps):
             force, torque, tau_ext, R = self.forces(q, qd, pos, quat, vel,
                                                     ang)
-            pos, quat, vel, ang = self.integrate(pos, quat, vel, ang, force,
-                                                 torque, R)
-            q, qd, warm = substep(q, qd, tgt, tau_ext.contiguous(), warm)
-        return states.replace(q=q, qd=qd, body_pos=pos, body_quat=quat,
-                              body_vel=vel, body_ang=ang)
+            new = self.integrate(pos, quat, vel, ang, force, torque, R)
+            opos = (s.obstacle_pos + step_vel if self.moving_obstacles
+                    else s.obstacle_pos)
+            q_n, qd_n, warm = substep(q, qd, tgt, tau_ext.contiguous(), warm)
+            new = (q_n, qd_n) + new
+            if self.check is not None:
+                gd, hit = self.check(q_n, s.replace(obstacle_pos=opos))
+                collided = s.is_collided | hit
+                if self.freeze_on_collision:
+                    # once collided, the state stops evolving and the link
+                    # distances keep the colliding substep's values
+                    frz = s.is_collided
+                    new = tuple(_keep(frz, o, n) for o, n in
+                                zip((q, qd, pos, quat, vel, ang), new))
+                    opos = _keep(frz, s.obstacle_pos, opos)
+                    gd = _keep(frz, s.link_obstacle_dist, gd)
+                s = s.replace(is_collided=collided, link_obstacle_dist=gd)
+            q, qd, pos, quat, vel, ang = new
+            s = s.replace(obstacle_pos=opos)
+        return s.replace(q=q, qd=qd, body_pos=pos, body_quat=quat,
+                         body_vel=vel, body_ang=ang)
 
 
-class RobotOnlyPhysics:
+class RobotOnlyPhysics(_Physics):
     """``states -> states`` after one policy step of robot-only physics.
-    ``motor`` is the K1 wrapper, warm-started as the TPU kernel always is;
-    its ``launches`` count the kernel's runs."""
+    ``motor`` is the K1 wrapper, warm-started as the TPU kernel always is
+    (unless ``warm_start`` says otherwise); its ``launches`` count the
+    kernel's runs."""
 
     def __init__(self, model: ChainModel, *, n_substeps: int, ctrl_mode: int,
-                 moving_obstacles: bool):
-        self.n_substeps = n_substeps
+                 moving_obstacles: bool, timestep: float = TIMESTEP,
+                 gravity=None, effort=None, warm_start: Optional[bool] = None,
+                 per_env: bool = False):
+        super().__init__(model, n_substeps=n_substeps, ctrl_mode=ctrl_mode,
+                         timestep=timestep, gravity=gravity, effort=effort,
+                         per_env=per_env)
         self.moving_obstacles = moving_obstacles
-        self.motor = make_cuda_motor_steps(
-            model, n_substeps=n_substeps, dt=TIMESTEP, ctrl_mode=ctrl_mode,
-            warm_start=True)
+        self.motor = self._motor(n_substeps, True if warm_start is None
+                                 else bool(warm_start))
 
-    def __call__(self, states: EnvState) -> EnvState:
-        q, qd = self.motor(states.q.contiguous(), states.qd.contiguous(),
-                           states.ctrl_target.contiguous())
+    def __call__(self, states: EnvState, plain: bool = False) -> EnvState:
+        """``states -> states`` after one policy step.  ``plain`` runs the
+        motor's plain version on any device (the card checks hold K1
+        against it)."""
+        q, qd = states.q.contiguous(), states.qd.contiguous()
+        tgt = states.ctrl_target.contiguous()
+        if self.pgs:
+            for _ in range(self.n_substeps):
+                q, qd, _ = self.pgs_substep(q, qd, tgt)
+        else:
+            q, qd = (self.motor.plain if plain else self.motor)(q, qd, tgt)
         upd = dict(q=q, qd=qd)
         if self.moving_obstacles:
             upd["obstacle_pos"] = (
                 states.obstacle_pos
-                + (self.n_substeps * TIMESTEP) * states.obstacle_vel)
+                + (self.n_substeps * self.dt) * states.obstacle_vel)
         return states.replace(**upd)
 
 
-class CollisionPhysics:
+class CollisionPhysics(_Physics):
     """``states -> states`` after one policy step of ReachAO physics:
     ``n_substeps`` substeps, each the motor substep, the obstacle advance,
     the collision check of the moved robot against the moved obstacles and
@@ -461,21 +622,20 @@ class CollisionPhysics:
                  collision_safety_distance: float = 0.0,
                  freeze_on_collision: bool = True,
                  moving_obstacles: bool = False,
-                 warm_start: Optional[bool] = None):
-        self.model = model
-        self.n_substeps = n_substeps
-        self.dt = TIMESTEP
-        self.ctrl_mode = ctrl_mode
+                 warm_start: Optional[bool] = None,
+                 timestep: float = TIMESTEP, gravity=None, effort=None,
+                 per_env: bool = False):
+        super().__init__(model, n_substeps=n_substeps, ctrl_mode=ctrl_mode,
+                         timestep=timestep, gravity=gravity, effort=effort,
+                         per_env=per_env)
         self.collision_safety_distance = collision_safety_distance
         self.freeze_on_collision = freeze_on_collision
         self.moving_obstacles = moving_obstacles
         self.warm_start = (D.lcp_warm_default(False) if warm_start is None
                            else bool(warm_start))
         self.scene = scene
-        self._table = {}
-        self.motor = make_cuda_motor_steps(
-            model, n_substeps=1, dt=TIMESTEP, ctrl_mode=ctrl_mode,
-            warm_start=False)
+        self.check = CollisionCheck(model, scene, collision_safety_distance)
+        self.motor = self._motor(1, False)
 
     # ------------------------------------------------------------ motor
     def motor_substep_step(self, q, qd, tgt, warm=None):
@@ -493,33 +653,27 @@ class CollisionPhysics:
 
     # ------------------------------------------------------------ check
     def substep_distances(self, q, states: EnvState):
-        """Per-group obstacle and table distances at pose q against the
-        obstacles of ``states``: (B, ngroup) x2, the table's without group 0
-        (panda_link1; group_table_distances)."""
-        model, far = self.model, MAX_DISTANCE
-        p0, p1 = K.capsule_endpoints_world(model, K.fk_world(model, q))
-        d, _, _ = capsule_obstacle_distances(model, p0, p1, states, far)
-        gd = group_min(model, torch.amin(d, dim=2), far)
-        dev = str(q.device)
-        if dev not in self._table:
-            self._table[dev] = [torch.as_tensor(v, device=q.device) for v in
-                                (self.scene.table_center,
-                                 self.scene.table_half)]
-        td = table_capsule_distances(model, p0, p1, *self._table[dev], far)
-        td = _skip(group_min(model, td, far), (0,), far)
-        return gd, td
+        """Per-group obstacle and table distances at pose q
+        (``CollisionCheck.distances``)."""
+        return self.check.distances(q, states)
 
     def __call__(self, states: EnvState, plain: bool = False) -> EnvState:
         """``states -> states`` after one policy step.  ``plain`` runs the
         motor's plain seed and substep on any device (the card checks hold
         K1 against it)."""
-        substep = self.plain_substep_step if plain else self.motor_substep_step
-        seed = self.motor.plain_seed if plain else self.motor.seed
+        if self.pgs:
+            seed = None
+            substep = lambda q, qd, tgt, warm: self.pgs_substep(  # noqa: E731
+                q, qd, tgt)
+        else:
+            substep = (self.plain_substep_step if plain
+                       else self.motor_substep_step)
+            seed = self.motor.plain_seed if plain else self.motor.seed
         q = states.q.contiguous()
         qd = states.qd.contiguous()
         tgt = states.ctrl_target.contiguous()
         step_vel = self.dt * states.obstacle_vel
-        warm = seed(q, qd, tgt) if self.warm_start else None
+        warm = seed(q, qd, tgt) if self.warm_start and seed else None
         s = states
         for _ in range(self.n_substeps):
             # robot substep (motor semantics), then the kinematic obstacle
@@ -528,15 +682,8 @@ class CollisionPhysics:
             opos_new = (s.obstacle_pos + step_vel if self.moving_obstacles
                         else s.obstacle_pos)
             # collision check on the moved robot + moved obstacles
-            gd, td = self.substep_distances(
-                q_new, s.replace(obstacle_pos=opos_new))
-            # skip group 0 (panda_link1); deep box penetrations already
-            # read as far upstream (Bullet convex-margin blindness); link1
-            # distances stay in the per-link observation vector
-            least = torch.minimum(torch.amin(gd[:, 1:], dim=1),
-                                  torch.amin(td, dim=1))
-            collided = s.is_collided | (least
-                                        <= self.collision_safety_distance)
+            gd, hit = self.check(q_new, s.replace(obstacle_pos=opos_new))
+            collided = s.is_collided | hit
             if self.freeze_on_collision:
                 # once collided, q/qd/obstacles stop evolving and link
                 # distances keep the colliding substep's values
@@ -568,22 +715,35 @@ def make_batched_physics_step(
     freeze_on_collision: bool = True,
     has_bodies: bool = True,
     moving_obstacles: bool = False,
+    timestep: float = TIMESTEP,
+    gravity=None,
+    effort=None,
+    warm_start: Optional[bool] = None,
+    per_env: bool = False,
 ):
-    """Batch-native physics step over a batched EnvState."""
+    """Batch-native physics step over a batched EnvState: n_substeps of
+    ``timestep`` (pybullet dt semantics; defaults 20 x 1/500 s).
+
+    The arguments of the JAX package's per-env ``make_physics_step``
+    (engine.py:262-297): ``gravity`` (3 floats; None for (0, 0, -9.81),
+    which keeps K1's constants), ``effort`` (the per-joint motor force
+    clamps; None for the model's URDF efforts) and ``warm_start`` (None for
+    each path's default, dynamics.lcp_warm_default).  ``per_env`` builds
+    the step of a per-env entry point, which honours
+    ``dynamics.set_lcp_mode`` (``_Physics``)."""
+    kw = dict(n_substeps=n_substeps, ctrl_mode=ctrl_mode, timestep=timestep,
+              gravity=gravity, effort=effort, warm_start=warm_start,
+              per_env=per_env)
     if has_bodies and scene.nb > 0:
-        if check_collision or moving_obstacles:
-            raise NotImplementedError(
-                "no task combines free bodies with a collision check or "
-                "moving obstacles")
-        return ContactPhysics(model, scene, n_substeps=n_substeps,
-                              ctrl_mode=ctrl_mode,
-                              robot_contact=robot_contact,
-                              body_pairs=body_pairs)
-    if check_collision:
-        return CollisionPhysics(
-            model, scene, n_substeps=n_substeps, ctrl_mode=ctrl_mode,
+        return ContactPhysics(
+            model, scene, robot_contact=robot_contact, body_pairs=body_pairs,
+            check_collision=check_collision,
             collision_safety_distance=collision_safety_distance,
             freeze_on_collision=freeze_on_collision,
-            moving_obstacles=moving_obstacles)
-    return RobotOnlyPhysics(model, n_substeps=n_substeps, ctrl_mode=ctrl_mode,
-                            moving_obstacles=moving_obstacles)
+            moving_obstacles=moving_obstacles, **kw)
+    if check_collision:
+        return CollisionPhysics(
+            model, scene, collision_safety_distance=collision_safety_distance,
+            freeze_on_collision=freeze_on_collision,
+            moving_obstacles=moving_obstacles, **kw)
+    return RobotOnlyPhysics(model, moving_obstacles=moving_obstacles, **kw)

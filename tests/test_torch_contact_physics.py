@@ -351,8 +351,12 @@ def test_contact_physics_resolves_warm_and_routes_by_device(models,
     monkeypatch.setattr(TD, "LCP_WARM_START", False)
     assert not TE.make_batched_physics_step(tm, scene,
                                             robot_contact=True).warm_start
-    with pytest.raises(NotImplementedError):
-        TE.make_batched_physics_step(tm, scene, check_collision=True)
+    # with a collision check (the stateful Simulation's bodies beside
+    # obstacles): the same step, cold by default as the per-env step
+    monkeypatch.delenv("PANDA_LCP_WARM", raising=False)
+    phys = TE.make_batched_physics_step(tm, scene, check_collision=True)
+    assert isinstance(phys, TE.ContactPhysics) and phys.check is not None
+    assert not phys.warm_start
 
 
 def test_push_core_physics_is_contact_physics():

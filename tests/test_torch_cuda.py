@@ -8,7 +8,9 @@ evaluation's start poses (against the CPU), the paths of the NEO prior
 and the ee/pcc control modes (against the CPU), and the other learners and
 the population (the stacked update against the CPU and the members' own
 updates, TD3, DDPG, PPO and BC against the CPU, a short population run) on
-the card.
+the card; K1 with a gravity vector and with replaced force clamps, the
+single-env adapters, the vector adapter and the stateful Simulation with
+the Bullet goldens in both motor-LCP modes.
 
 Run on a machine with an NVIDIA card (tests/conftest.py imports JAX, which
 such a machine need not have, so it is skipped):
@@ -796,3 +798,128 @@ def test_bc_train_card_matches_cpu(card):
         np.testing.assert_allclose(
             torch.tanh(student(X)[0]).cpu().numpy(),
             torch.tanh(student_cpu(X.cpu())[0]).numpy(), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the gym surface and the stateful Simulation
+
+
+@pytest.mark.parametrize("lanes", [CD.LANES, CD.THREAD],
+                         ids=["lanes", "thread"])
+@pytest.mark.parametrize("n_sub,warm", [(20, True), (1, False)],
+                         ids=["warm20", "cold1"])
+@pytest.mark.parametrize("B", [1, 1000])
+def test_k1_gravity_and_effort_match_plain(card, lanes, n_sub, warm, B):
+    """K1 with the gravity vector (0.3, -0.2, -9.0) and halved force clamps
+    against its plain version; the default gravity vector gives the null
+    pointer's bits."""
+    model = make_panda_model()
+    effort = 0.5 * np.asarray(model.effort, np.float32)
+    kw = dict(n_substeps=n_sub, dt=DT, ctrl_mode=0, warm_start=warm)
+    k1 = CD.make_cuda_motor_steps(model, gravity=(0.3, -0.2, -9.0),
+                                  effort=effort, **kw)
+    args = _inputs(model, B, 0, 21, card)
+    qk, qdk = k1.launch(*args, lanes)
+    qp, qdp = k1.plain(*args)
+    torch.cuda.synchronize()
+    assert (qk - qp).abs().max().item() <= ATOL_Q
+    assert (qdk - qdp).abs().max().item() <= ATOL_QD
+    null = CD.make_cuda_motor_steps(model, **kw)
+    default = CD.make_cuda_motor_steps(model, gravity=(0.0, 0.0, -9.81), **kw)
+    a, b = null.launch(*args, lanes), default.launch(*args, lanes)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("name", ["PandaReachEnv", "PandaPushEnv",
+                                  "PandaPickAndPlaceEnv", "MyCobotReachEnv"])
+def test_adapter_on_card_matches_cpu(card, name):
+    """A single-env adapter on the card and on the CPU from the same seed's
+    state (the card's reset carried to the CPU): 3 steps of the same
+    actions; K1's launches counted on the per-env step."""
+    from panda_gym_tpu_torch.envs import panda_tasks as T
+    env_c = getattr(T, name)(device="cuda")
+    env_h = getattr(T, name)(device="cpu")
+    env_c.reset(seed=4)
+    env_h._state = env_c.state.replace(**{
+        k: getattr(env_c.state, k).cpu()
+        for k in env_c.state.__dataclass_fields__})
+    motor = env_c.env.physics_step.motor
+    motor.launches = 0
+    per_step = 21 if env_c.env.task.scene.nb else 1
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        a = rng.uniform(-1, 1, env_c.action_shape).astype(np.float32)
+        oc, rc, *_ = env_c.step(a)
+        oh, rh, *_ = env_h.step(a)
+        np.testing.assert_allclose(env_c.state.q.cpu().numpy(),
+                                   env_h.state.q.numpy(), atol=ATOL_Q)
+        np.testing.assert_allclose(oc["observation"], oh["observation"],
+                                   atol=2e-4)
+        assert abs(rc - rh) <= 1e-5
+    assert motor.launches == 3 * per_step
+
+
+def test_vector_adapter_on_card_autoresets(card):
+    from panda_gym_tpu_torch.envs.vector_adapter import VectorAdapter
+    core = make_core("reach", device="cuda")
+    v = VectorAdapter(core, 256, max_episode_steps=2)
+    v.reset(seed=0)
+    motor = core.physics_step_batched.motor
+    motor.launches = 0
+    a = np.zeros((256, 7), np.float32)
+    for t in range(3):
+        obs, r, term, trunc, info = v.step(a)
+    assert (r == 0).all() and not (term | trunc).any()
+    assert np.isfinite(obs["observation"]).all()
+    assert motor.launches == 3
+
+
+@pytest.mark.parametrize("mode", ["exact", "pgs"])
+def test_bullet_goldens_on_card(card, mode):
+    from panda_gym_tpu_torch.sim.facade import Simulation
+    D.set_lcp_mode(mode)
+    try:
+        s = Simulation(n_substeps=20, device="cuda")
+        s.load_robot(base_position=(0.0, 0.0, 0.0), inertia="stock")
+        s.set_joint_angles("robot", list(range(7)), [0.0] * 7)
+        s.control_joints("robot", [5], [0.3], [5.0])
+        s.physics.motor.launches = 0
+        s.step()
+        assert s.physics.route == ("pgs" if mode == "pgs" else "k1")
+        assert s.physics.motor.launches == (1 if mode == "exact" else 0)
+    finally:
+        D.set_lcp_mode("exact")
+    np.testing.assert_allclose(s.get_link_velocity("robot", 5),
+                               [-0.0068, 0.0000, 0.1186], atol=1e-3)
+    assert s.get_link_angular_velocity("robot", 5)[1] == pytest.approx(
+        -2.969, abs=1e-3)
+    assert s.get_joint_angle("robot", 5) == pytest.approx(0.063, abs=1e-3)
+    np.testing.assert_allclose(s.get_link_orientation("robot", 5),
+                               [0.707, -0.02, 0.02, 0.707], atol=1e-3)
+
+
+def test_simulation_body_and_obstacle_on_card_matches_plain(card):
+    """Simulation on the card with a falling body beside an obstacle moving
+    into the hand: one step on the K1 route against the plain route, then
+    3 steps (20 cold K1 launches each), the flag raised."""
+    from panda_gym_tpu_torch.sim.facade import Simulation
+    s = Simulation(device="cuda")
+    s.load_robot(base_position=(-0.6, 0.0, 0.0))
+    s.create_plane(z_offset=-0.4)
+    s.create_table(length=1.1, width=0.7, height=0.4)
+    s.set_joint_angles("robot", list(range(7)),
+                       [0.0, -0.3, 0.0, -2.2, 0.0, 2.0, 0.785])
+    s.create_sphere("ball", radius=0.03, mass=1.0, position=(0.2, -0.2, 0.5))
+    ee = s.get_link_position("robot", 11)
+    s.create_sphere("mover", radius=0.03, mass=0.0,
+                    position=ee + np.array([0.14, 0.0, 0.0]))
+    s.set_base_velocity("mover", np.array([-1.0, 0.0, 0.0]))
+    phys = s.physics
+    a, b = phys(s._state), phys(s._state, plain=True)
+    assert (a.q - b.q).abs().max().item() <= ATOL_Q
+    assert (a.body_vel - b.body_vel).abs().max().item() <= 2e-4
+    phys.motor.launches = 0
+    for _ in range(3):
+        s.step()
+    assert phys.motor.launches == 60
+    assert s.is_collided

@@ -122,9 +122,10 @@ def _ptr(a):
 
 
 def _run(host_k1, model, q, qd, tgt, *, mode, lanes, n_substeps, warm,
-         tau=None, warm_in=None, want_set=False, seed=False):
+         tau=None, warm_in=None, want_set=False, seed=False, gravity=None):
     """One launch of the host build: (q, qd, sat, sign), each None where
-    the launch writes no such output."""
+    the launch writes no such output; ``gravity`` (3 floats) as the launch's
+    gravity vector, else a null pointer."""
     fn = CD._bind(host_k1)
     chain = CD.chain_id(model)
     assert host_k1.motor_steps_model_floats(chain) == CD.pack_model(model).size
@@ -139,12 +140,13 @@ def _run(host_k1, model, q, qd, tgt, *, mode, lanes, n_substeps, warm,
         np.ascontiguousarray(warm_in[0], np.uint8),
         np.ascontiguousarray(warm_in[1], np.float32))
     table = CD.pack_model(model)
+    grav = None if gravity is None else np.asarray(gravity, np.float32)
     err = fn(q.ctypes.data, qd.ctypes.data, tgt.ctypes.data,
              _ptr(q_out), _ptr(qd_out), B, table.ctypes.data,
              n_substeps, 1.0 / 500.0, mode, D.POSITION_GAIN, D.MOTOR_LCP_ITERS,
              D.MOTOR_LCP_WARM_ITERS, 0, None, lanes, int(warm), _ptr(tau),
              _ptr(sat_in), _ptr(sign_in), _ptr(sat_out), _ptr(sign_out),
-             int(seed), chain)
+             int(seed), chain, _ptr(grav))
     assert err == 0
     return q_out, qd_out, sat_out, sign_out
 
@@ -312,3 +314,84 @@ def test_k1_tau_ext_substep_matches_plain(host_k1, mode, lanes, warm):
     if warm:
         np.testing.assert_array_equal(sat.astype(bool), pwarm[0].numpy())
         np.testing.assert_array_equal(sign, pwarm[1].numpy())
+
+
+# ---------------------------------------------------------------------------
+# a gravity vector (the stateful Simulation's), and effort clamps
+
+GRAVITY = (0.3, -0.2, -9.0)
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
+@pytest.mark.parametrize("mode", [0, 1], ids=["position", "velocity"])
+def test_k1_gravity_matches_plain(host_k1, mode, lanes, warm):
+    """A launch with gravity (0.3, -0.2, -9.0) against the plain version
+    with the same gravity (q 2e-5, qd 2e-3), at B = 1 and a ragged 40; at
+    40 the gravity moves the result: not the launch without it."""
+    model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
+    n_substeps = 20 if warm else 1
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=n_substeps,
+                                  dt=1.0 / 500.0, ctrl_mode=mode,
+                                  warm_start=warm, gravity=GRAVITY)
+    for B in (1, 40):
+        q, qd, tgt = _inputs(model, B, mode, 51 + mode)
+        if mode == 1:
+            # velocity targets that saturate motors, so that gravity shows
+            tgt = tgt * np.float32(30.0)
+        kw = dict(mode=mode, lanes=lanes, n_substeps=n_substeps, warm=warm)
+        qk, qdk, _, _ = _run(host_k1, model, q, qd, tgt, gravity=GRAVITY,
+                             **kw)
+        pq, pqd = k1.plain(*map(torch.as_tensor, (q, qd, tgt)))
+        np.testing.assert_allclose(qk, pq.numpy(), atol=ATOL_Q)
+        np.testing.assert_allclose(qdk, pqd.numpy(), atol=ATOL_QD)
+        # the gravity moves the result by far more than the kernel parts
+        # from the plain version
+        if B > 1:
+            q0, qd0, _, _ = _run(host_k1, model, q, qd, tgt, **kw)
+            err = np.abs(qdk - pqd.numpy()).max()
+            assert np.abs(qd0 - qdk).max() > 10 * err + 1e-4
+
+
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
+@pytest.mark.parametrize("key", sorted(PARENT_DIGESTS),
+                         ids=lambda k: f"{k[0]}sub-{'warm' if k[1] else 'cold'}-m{k[2]}")
+def test_k1_default_gravity_vector_matches_null_pointer(host_k1, key, lanes):
+    """The gravity vector (0, 0, -9.81) gives the null pointer's digests:
+    the runtime vector feeds the same base acceleration as the constants."""
+    n_substeps, warm, mode = key
+    base = (-0.6, 0.0, 0.0) if n_substeps == 20 else (0.0, 0.0, 0.0)
+    model = make_panda_model(base_position=base)
+    q, qd, tgt = _inputs(model, 40, mode, 11 + mode)
+    q_out, qd_out, _, _ = _run(host_k1, model, q, qd, tgt, mode=mode,
+                               lanes=lanes, n_substeps=n_substeps, warm=warm,
+                               gravity=(0.0, 0.0, -9.81))
+    digest = hashlib.sha256(q_out.tobytes() + qd_out.tobytes()).hexdigest()
+    assert digest[:16] == PARENT_DIGESTS[key]
+
+
+@pytest.mark.parametrize("lanes", [8, 1], ids=["lanes", "thread"])
+def test_k1_effort_table_matches_plain(host_k1, lanes):
+    """A model table with the motor force clamps replaced (the facade's
+    control_joints forces) against the plain version with that effort; a
+    5 N m clamp on joint 5 saturates it, so the result moves."""
+    model = make_panda_model(base_position=(-0.6, 0.0, 0.0))
+    effort = np.asarray(model.effort, np.float32).copy()
+    effort[5] = 5.0
+    effort[1] = 20.0
+    k1 = CD.make_cuda_motor_steps(model, n_substeps=20, dt=1.0 / 500.0,
+                                  ctrl_mode=0, warm_start=True, effort=effort)
+    q, qd, tgt = _inputs(model, 40, 0, 61)
+    tgt = tgt + np.float32(0.5)
+    fn_args = dict(mode=0, lanes=lanes, n_substeps=20, warm=True)
+    orig = CD.pack_model
+    try:
+        CD.pack_model = lambda m, e=None: orig(m, effort)  # noqa: E731
+        qk, qdk, _, _ = _run(host_k1, model, q, qd, tgt, **fn_args)
+    finally:
+        CD.pack_model = orig
+    pq, pqd = k1.plain(*map(torch.as_tensor, (q, qd, tgt)))
+    np.testing.assert_allclose(qk, pq.numpy(), atol=ATOL_Q)
+    np.testing.assert_allclose(qdk, pqd.numpy(), atol=ATOL_QD)
+    q0, _, _, _ = _run(host_k1, model, q, qd, tgt, **fn_args)
+    assert np.abs(q0 - qk).max() > 10 * ATOL_Q

@@ -158,16 +158,20 @@ def test_moving_obstacles_advance():
 
 
 def test_unported_paths_raise():
-    """What no task of the JAX package combines: free bodies with a
-    collision check or with moving obstacles.  Forces between free bodies
-    are ported (Stack)."""
+    """What no task of the JAX package combines, free bodies with a
+    collision check or with moving obstacles, no longer raises: the
+    stateful Simulation steps such scenes (tests/test_torch_facade.py holds
+    them against the JAX package).  Forces between free bodies are ported
+    (Stack)."""
     env = make_core("reach", device="cpu")
     cube = dict(shape=0, size=(0.02,) * 3, mass=1.0)
     scene = build_scene([cube, cube], 1.1, 0.7, 0.4)
     for kw in (dict(check_collision=True), dict(moving_obstacles=True)):
-        with pytest.raises(NotImplementedError, match="free bodies"):
-            TE.make_batched_physics_step(env.model, scene,
-                                         body_pairs=((1, 0),), **kw)
+        phys = TE.make_batched_physics_step(env.model, scene,
+                                            body_pairs=((1, 0),), **kw)
+        assert isinstance(phys, TE.ContactPhysics)
+        assert (phys.check is not None) == ("check_collision" in kw)
+        assert phys.moving_obstacles == ("moving_obstacles" in kw)
     phys = TE.make_batched_physics_step(env.model, scene,
                                         body_pairs=((1, 0),))
     assert isinstance(phys, TE.ContactPhysics)

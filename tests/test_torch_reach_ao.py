@@ -450,8 +450,9 @@ def test_unported_options_raise():
     # the mixture core is ported (tests/test_torch_train.py holds it)
     assert isinstance(trao.make_reach_ao_core("reachao1+wall", device="cpu"),
                       trao._MixtureReachAOEnv)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trao.PandaReachAOEnv(scenario="reachao1")
+    # the gym class is ported (tests/test_torch_gym.py holds it)
+    env = trao.PandaReachAOEnv(scenario="reachao1", device="cpu")
+    assert env.observation_shapes["observation"] == (56,)
     # the static scenes and reachao1-3 run under the default config
     for name in ("reachao3", "wall", "tunnel", "wangexp-3"):
         trao.make_reach_ao_core(name, device="cpu")
