@@ -210,6 +210,33 @@ kernel, built for each chain, for MyCobot and the 9-dof Panda.  Phases, one prog
      Simulation with a falling body beside a moving obstacle (the flag
      raised, no freeze) and under gravity (0, 0, -1.62); ms per adapter,
      vector and Simulation step, and K1 at B = 1 beside its bound.
+ 15. env-batch data parallelism over torch.distributed and the campaign
+     tools: a. initialize_multihost starts a one-rank NCCL group on the
+     card and Trainer.learn on reachao1 at n_envs 64, cut to one rollout
+     (1280 env steps) and its burst, with that mesh equals the same run
+     with no mesh bit for bit (parameters and Adam state, buffer,
+     generator, the rows but their host clocks, the full-state
+     checkpoints), 20 K1 launches per env step on the lane-group kernel;
+     b. two spawned ranks share card 0 over gloo (NCCL refuses two ranks on
+     one GPU): reachao1 at global n_envs 128, 64 per rank, one rollout, its
+     burst and one evaluation: K1 rose by 20 per env step on each rank on
+     the lane-group kernel, the rows are equal and the parameters bitwise
+     equal on both ranks, each buffer holds capacity / 2 episodes, the
+     full-state checkpoint holds both ranks; c. on each rank one sharded
+     batched_step of reachao1 at global 4096 (forced collisions in both
+     blocks) against the unsharded step on its block by phase 7's
+     tolerances (envs outside them at most 16, each a contact tie); d.
+     utils.profiling times a and b (StepTimer, sync, device_memory_stats):
+     env-steps/s at W = 1 and W = 2 on the one card, and the smoke tool's
+     ms per sharded Reach step at 4096 with and without the collective
+     (gloo on the card); e. the campaign tools cut to 16 episodes of 20
+     steps on reachao1 and narrow_tunnel: continue_population from phase
+     13's member checkpoints (one rollout, the members' update count kept),
+     distill_cli on the asset's routed generalist (200 BC steps, one
+     DAgger round, each round benchmarked; its .policy.npz through the eval
+     CLI), build_router from a run-data root made of the asset's members
+     (200 router steps; the routed action card vs CPU by phase 9's rule);
+     K1's launches counted over every wrapper each tool makes.
 
 The line before the last is one JSON object with a row per kernel path
 (K1 on each path above); the last line is {"ok": true, "device": {...}}.
@@ -235,6 +262,7 @@ import inspect
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1397,7 +1425,7 @@ EVAL_MIN_SUCCESS = 0.85
 RTOL_ACT, ATOL_ACT, ROUTER_TIE = 1e-5, 1e-6, 1e-5
 
 
-def routed_vs_cpu(policy, npz, x, card):
+def routed_vs_cpu(policy, npz, x, card, tag="phase 9"):
     """The routed action and the router's choice on one obs batch, on the
     card and on the CPU.  Returns the largest action difference."""
     from panda_gym_tpu_torch.eval.router import (load_routed_policy,
@@ -1411,7 +1439,7 @@ def routed_vs_cpu(policy, npz, x, card):
     d = (a_card.cpu() - a_cpu).abs()
     over = int((d > ATOL_ACT + RTOL_ACT * a_cpu.abs()).sum())
     same = bool(torch.equal(c_card.cpu()[clear], c_cpu[clear]))
-    say(f"phase 9 routed action on {x.shape[0]} observations, card vs CPU: "
+    say(f"{tag} routed action on {x.shape[0]} observations, card vs CPU: "
         f"max |d| {d.max().item():.3e}, {over} elements outside rtol "
         f"{RTOL_ACT} atol {ATOL_ACT}; choices equal on the {int(clear.sum())}"
         f" without a near-tie: {same} ({len(set(c_cpu.tolist()))} "
@@ -3568,16 +3596,16 @@ def drive_distill(CD, root, dev, card):
     return counts[CD.LANES], err
 
 
-def phase13(CD, root, rng, dev, card):
-    """Phase 13; returns what the kernels line needs."""
+def phase13(CD, root, rng, dev, card, run_root):
+    """Phase 13, its runs under run_root (phase 15 continues the
+    population's members); returns what the kernels line needs."""
     t0 = time.perf_counter()
     mark = lambda what: say(  # noqa: E731
         f"phase 13 {what} at {time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory() as run_root:
-        pop = drive_population(CD, dev, card, run_root)
-        mark("population done")
-        off = drive_td3_ddpg(CD, dev, card, run_root)
-        mark("TD3 and DDPG done")
+    pop = drive_population(CD, dev, card, run_root)
+    mark("population done")
+    off = drive_td3_ddpg(CD, dev, card, run_root)
+    mark("TD3 and DDPG done")
     ppo = drive_ppo(CD, dev, card)
     mark("PPO done")
     distill = drive_distill(CD, root, dev, card)
@@ -4025,6 +4053,526 @@ def phase14(CD, _hi_prec, model, rng, dev, card):
     return gravity_err, golden, adapters, vector, facade, times
 
 
+# ----------------------------------------------------------------- phase 15
+# Env-batch data parallelism over torch.distributed (parallel/mesh.py): one
+# rank on NCCL against the single-process Trainer; two ranks sharing the
+# card over gloo (NCCL refuses two ranks on one GPU), each with its block of
+# the env batch and its shard of the replay; the sharded ReachAO step
+# against the unsharded one; the smoke tool's collective share.  The
+# profiling hooks (utils/profiling.py) time it.  Then the campaign tools,
+# cut down.
+MESH_STEPS = N_ENVS * HORIZON       # one rollout of 64 envs per rank
+MESH_TIMEOUT_S = 600.0
+CLOCKS = ("sps", "t_collect", "t_update")
+CAMPAIGN_SCENES = ("reachao1", "narrow_tunnel")
+CAMPAIGN_EPISODES = 16
+# phase 8's horizon: the tools' rounds cut to 20 steps keep phase 15
+# near its time
+CAMPAIGN_HORIZON = HORIZON
+CAMPAIGN_STEPS = 200
+
+
+def mesh_config(n_envs, evaluate):
+    """Phase 8's TrainConfig cut to one rollout of n_envs (global) envs and
+    its burst, a full-state checkpoint after it and, with ``evaluate``, an
+    evaluation of 64 episodes."""
+    cfg = train_config(MESH_STEPS)
+    cfg.n_envs = n_envs
+    if not evaluate:
+        cfg.eval_freq = 10 * MESH_STEPS
+    return cfg
+
+
+def mesh_run(CD, cfg, dev, run_root, name, mesh=None):
+    """Trainer.learn on the card with ``mesh``, K1's counts set to 0 as the
+    env is made, just before the run; a profiling.StepTimer around it,
+    ending in profiling.sync.  Returns (trainer, K1's counts, seconds)."""
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+    from panda_gym_tpu_torch.rl.logging_utils import RunLogger
+    from panda_gym_tpu_torch.rl.train import Trainer
+    from panda_gym_tpu_torch.utils import profiling as P
+
+    cores = []
+
+    def make_env(sc, thr, spd):
+        core = make_reach_ao_core(sc, config=cfg, ee_error_threshold=thr,
+                                  speed_threshold=spd, device=dev)
+        reset_counts(CD, core)
+        cores.append(core)
+        return core
+
+    logger = (RunLogger(group="chip_smoke", name=name, config=cfg,
+                        root=run_root)
+              if mesh is None or mesh.rank == 0 else None)
+    trainer = Trainer(cfg, make_env, logger=logger, mesh=mesh)
+    timer = P.StepTimer()
+    with timer:
+        trainer.learn()
+        P.sync(trainer.buffer.ep_len)
+    if logger is not None:
+        logger.close()
+    counts = dict(cores[0].physics_step_batched.motor.kernel_launches)
+    return trainer, counts, timer.samples[-1]
+
+
+def mesh_env_steps(trainer):
+    """A rank's env steps: its rollouts' and its evaluation rounds'."""
+    hist = trainer.metrics.history
+    n_evals = sum("eval_success" in r for r in hist)
+    rounds = -(-trainer.config.n_eval_episodes // trainer.config.n_envs)
+    return HORIZON * (sum("rollout_reward" in r for r in hist)
+                      + n_evals * rounds)
+
+
+def rollout_ms(rows, n_updates, n_envs):
+    """ms per collect env step, the n_envs envs' env-steps/s while
+    collecting and ms per update of the burst, from a run's first rollout
+    row (host clock; under a mesh the ranks' means)."""
+    r = next(r for r in rows if "rollout_reward" in r)
+    return (f"collect {r['t_collect'] * 1e3 / HORIZON:.1f} ms per env step "
+            f"({n_envs * HORIZON / r['t_collect']:.1f} env-steps/s over "
+            f"{n_envs} envs), {r['t_update'] * 1e3 / n_updates:.2f} ms per "
+            f"update of the burst")
+
+
+def no_clocks(rows):
+    return [{k: v for k, v in r.items() if k not in CLOCKS} for r in rows]
+
+
+def latest_full_state(run_root, name):
+    from panda_gym_tpu_torch.rl.checkpoint import (CheckpointManager,
+                                                   load_checkpoint)
+    latest = CheckpointManager(os.path.join(
+        run_root, "chip_smoke", name, "full_state")).latest()
+    return None if latest is None else load_checkpoint(latest)
+
+
+def mesh_one_rank(CD, dev, card, run_root):
+    """Phase 15a: initialize_multihost starts a one-rank NCCL group on the
+    card; Trainer.learn with its mesh and with no mesh, the same config:
+    the parameters and Adam state, the buffer, the generator, the rows but
+    their host clocks and the full-state checkpoints bit for bit.  Returns
+    (env-steps/s at W = 1, K1's launches, env steps)."""
+    import torch.distributed as dist
+    from panda_gym_tpu_torch.parallel import mesh as M
+    from panda_gym_tpu_torch.rl import her
+    from panda_gym_tpu_torch.rl.learners import named_state
+    from panda_gym_tpu_torch.rl.train import schedule
+    from panda_gym_tpu_torch.utils import profiling as P
+
+    M.initialize_multihost("file://" + os.path.join(run_root, "nccl_store"),
+                           1, 0, device=dev)
+    try:
+        mesh = M.make_env_mesh()
+        backend = dist.get_backend()
+        runs = {name: mesh_run(CD, mesh_config(N_ENVS, False), dev, run_root,
+                               f"phase15a_{name}", m)
+                for name, m in (("mesh", mesh), ("none", None))}
+    finally:
+        M.shutdown()
+    (tm, cm, sm), (tn, cn, sn) = runs["mesh"], runs["none"]
+    steps = mesh_env_steps(tm)
+    a, b = named_state(tm.ts), named_state(tn.ts)
+    ba, bb = her.save_state(tm.buffer), her.save_state(tn.buffer)
+    pa, pb = (latest_full_state(run_root, f"phase15a_{n}")
+              for n in ("mesh", "none"))
+    checks = {
+        "a one-rank NCCL group": backend == "nccl" and mesh.world_size == 1
+            and mesh.group is not None,
+        "K1: 20 launches per env step, all on the lane-group kernel, in "
+        "both runs": cm == cn == {CD.LANES: N_SUBSTEPS * steps,
+                                  CD.THREAD: 0},
+        "a collect rollout and its burst": tm.ts.step == tn.ts.step
+            == schedule(tm.config, HORIZON).updates_per_rollout,
+        "rows equal but their host clocks":
+            no_clocks(tm.metrics.history) == no_clocks(tn.metrics.history),
+        "parameters and Adam state bitwise equal": all(
+            torch.equal(a[k], b[k]) for k in a),
+        "buffer bitwise equal": (ba["write_idx"], ba["n_stored"])
+            == (bb["write_idx"], bb["n_stored"]) and all(
+            torch.equal(v, bb["tensors"][k])
+            for k, v in ba["tensors"].items()),
+        "generators equal": torch.equal(tm.generator.get_state(),
+                                        tn.generator.get_state()),
+        "full-state checkpoints equal": pa is not None and pb is not None
+            and pa.keys() == pb.keys() and all(
+            torch.equal(v, pb["ts"]["tensors"][k])
+            for k, v in pa["ts"]["tensors"].items()) and all(
+            torch.equal(v, pb["buffer"]["tensors"][k])
+            for k, v in pa["buffer"]["tensors"].items()),
+    }
+    say(f"phase 15a one rank on {backend}: Trainer.learn on reachao1 at "
+        f"n_envs={N_ENVS}, {steps} env steps, {tm.ts.step} updates, K1 "
+        f"launches {({KERNEL_NAMES[k]: v for k, v in cm.items()})}, checks "
+        f"{checks}")
+    say(f"phase 15 W=1: {tm.timesteps} env steps in {sm:.2f} s, "
+        f"{tm.timesteps / sm:.1f} env-steps/s with the mesh (a collect "
+        f"rollout, its burst of {tm.ts.step} updates, set-up included), "
+        f"{tn.timesteps / sn:.1f} without; "
+        f"{rollout_ms(tm.metrics.history, tm.ts.step, N_ENVS)} | {card}")
+    say(f"phase 15 device_memory_stats: {P.device_memory_stats()} | {card}")
+    if not all(checks.values()):
+        fail(f"phase 15a checks failed: {checks}")
+    return tm.timesteps / sm, cm[CD.LANES], steps
+
+
+def sharded_step(mesh):
+    """Phase 15c on one rank: one batched_step of reachao1 at the global
+    B_MAIN (the first obstacle of envs 0-7 of each block on its end
+    effector) and the rank's block of it stepped alone, by phase 7's rule:
+    q, qd and link distances within 2e-5, 2e-3 and 1e-4, collided flags
+    equal, on every env of the block but at most 16 contact ties."""
+    from panda_gym_tpu_torch.envs.tasks.reach_ao import make_reach_ao_core
+    from panda_gym_tpu_torch.parallel import mesh as M
+
+    dev = mesh.device
+    env = make_reach_ao_core("reachao1", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = env.batched_reset(B_MAIN, gen)
+    forced = torch.cat([torch.arange(N_FORCED) + b * B_MAIN // 2
+                        for b in range(2)]).to(dev)
+    opos = states.obstacle_pos.clone()
+    opos[forced, 0] = obs["achieved_goal"][forced]
+    states = states.replace(obstacle_pos=opos)
+    a = torch.rand(B_MAIN, env.robot.action_dim, generator=gen,
+                   device=dev) * 2.0 - 1.0
+    full = M.shard_env_batch(env.batched_step(states, a)[0], mesh)
+    mine = env.batched_step(M.shard_env_batch(states, mesh),
+                            M.shard_env_batch(a, mesh))[0]
+    bad = route_diff(mine, full)
+    good = ~bad
+    least = full.link_obstacle_dist.abs().amin(1)
+    return {"block": M.env_sharding(mesh, B_MAIN), "outside": int(bad.sum()),
+            "ties": bool((least[bad] <= ATOL_LINK).all()),
+            "collided": int(full.is_collided.sum()),
+            "errors": [(mine.q - full.q)[good].abs().max().item(),
+                       (mine.qd - full.qd)[good].abs().max().item(),
+                       (mine.link_obstacle_dist - full.link_obstacle_dist)
+                       [good].abs().max().item()]}
+
+
+def mesh_rank(rank, nproc, store, run_root):
+    """Phases 15b and c on one of the ranks that share card 0 over gloo:
+    the sharded step, then Trainer.learn with the mesh."""
+    from panda_gym_tpu_torch.ops import cuda_dynamics as CD
+    from panda_gym_tpu_torch.parallel import mesh as M
+    from panda_gym_tpu_torch.rl.learners import named_state
+    from panda_gym_tpu_torch.utils import profiling as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    M.initialize_multihost(store, nproc, rank, device="cuda:0",
+                           backend="gloo")
+    try:
+        mesh = M.make_env_mesh()
+        sharded = sharded_step(mesh)
+        trainer, counts, seconds = mesh_run(
+            CD, mesh_config(nproc * N_ENVS, True), mesh.device, run_root,
+            "phase15b", mesh)
+        return dict(
+            counts=counts, seconds=seconds, steps=mesh_env_steps(trainer),
+            rows=trainer.metrics.history, step=trainer.ts.step,
+            state={k: v.detach().cpu()
+                   for k, v in named_state(trainer.ts).items()},
+            capacity=trainer.buffer.capacity,
+            n_stored=trainer.buffer.n_stored, timesteps=trainer.timesteps,
+            sharded=sharded, memory=P.device_memory_stats())
+    finally:
+        M.shutdown()
+
+
+def mesh_two_ranks(CD, card, run_root):
+    """Phases 15b and c: two spawned ranks on card 0 over gloo, reachao1 at
+    global n_envs 128, 64 per rank, one rollout and its burst, one
+    evaluation and a full-state checkpoint.  Returns (env-steps/s at W = 2,
+    K1's launches on each rank, env steps on each)."""
+    from panda_gym_tpu_torch.parallel.smoke import launch
+    from panda_gym_tpu_torch.rl.train import schedule
+
+    cfg = mesh_config(2 * N_ENVS, True)
+    r0, r1 = launch(mesh_rank, 2, (run_root,), MESH_TIMEOUT_S)
+    sched = schedule(cfg, HORIZON)
+    payload = latest_full_state(run_root, "phase15b")
+    metrics = [v for r in r0["rows"] for k, v in r.items()
+               if k in ("critic_loss", "actor_loss", "alpha")]
+    for r in (r0, r1):
+        sh = r["sharded"]
+        say(f"phase 15c rank block {sh['block']}: sharded reachao1 step vs "
+            f"the unsharded step at B={B_MAIN}: max|dq|={sh['errors'][0]:.3e}"
+            f" (atol {ATOL_Q}) max|dqd|={sh['errors'][1]:.3e} (atol "
+            f"{ATOL_QD}) max|dlink|={sh['errors'][2]:.3e} m (atol "
+            f"{ATOL_LINK}), {sh['collided']} collided, {sh['outside']} "
+            f"outside the tolerance (contact ties: {sh['ties']})")
+    checks = {
+        "K1: 20 launches per env step on each rank, all on the lane-group "
+        "kernel": r0["steps"] == r1["steps"] > 0 and r0["counts"]
+            == r1["counts"] == {CD.LANES: N_SUBSTEPS * r0["steps"],
+                                CD.THREAD: 0},
+        "one evaluation": sum("eval_success" in r for r in r0["rows"]) == 1,
+        "the rows equal on both ranks": r0["rows"] == r1["rows"],
+        "the parameters bitwise equal on both ranks": all(
+            torch.equal(v, r1["state"][k]) for k, v in r0["state"].items()),
+        "the update count": r0["step"] == r1["step"]
+            == sched.updates_per_rollout,
+        "losses and alpha finite": bool(metrics) and all(
+            np.isfinite(v) for v in metrics),
+        "each buffer holds capacity / 2 episodes":
+            r0["capacity"] == r1["capacity"] == sched.capacity // 2
+            and r0["n_stored"] == r1["n_stored"] == N_ENVS,
+        "the full-state checkpoint holds both ranks": payload is not None
+            and payload["world_size"] == 2 and len(payload["ranks"]) == 2,
+        "the sharded step agrees with the unsharded one on each block": all(
+            r["sharded"]["errors"][0] <= ATOL_Q
+            and r["sharded"]["errors"][1] <= ATOL_QD
+            and r["sharded"]["errors"][2] <= ATOL_LINK
+            and r["sharded"]["outside"] <= MAX_TIES
+            and r["sharded"]["ties"] for r in (r0, r1)),
+    }
+    seconds = max(r0["seconds"], r1["seconds"])
+    say(f"phase 15b two ranks on card 0 over gloo: Trainer.learn on reachao1 "
+        f"at n_envs={2 * N_ENVS} ({N_ENVS} per rank), {r0['steps']} env "
+        f"steps per rank, {r0['step']} updates on batches of "
+        f"{sched.batch_size // 2} per rank, K1 launches per rank "
+        f"{({KERNEL_NAMES[k]: v for k, v in r0['counts'].items()})}, buffer "
+        f"{r0['capacity']} of {sched.capacity} episodes per rank, checks "
+        f"{checks}")
+    say(f"phase 15 W=2: {rollout_ms(r0['rows'], r0['step'], 2 * N_ENVS)} "
+        f"(the ranks' "
+        f"means) | {card}")
+    say(f"phase 15 W=2: {r0['timesteps']} env steps in {seconds:.2f} s, "
+        f"{r0['timesteps'] / seconds:.1f} env-steps/s (ranks "
+        f"{r0['seconds']:.2f} and {r1['seconds']:.2f} s; a collect rollout, "
+        f"its burst, one "
+        f"evaluation, set-up included); device_memory_stats of rank 0 "
+        f"{r0['memory']} | {card}")
+    if not all(checks.values()):
+        fail(f"phase 15b/c checks failed: {checks}")
+    return r0["timesteps"] / seconds, r0["counts"][CD.LANES], r0["steps"]
+
+
+def mesh_smoke(card, run_root):
+    """Phase 15d: the smoke tool with two ranks on card 0 over gloo, Reach
+    at B_MAIN: ms per sharded step with and without the collective."""
+    from panda_gym_tpu_torch.parallel import smoke
+
+    rec = smoke.main(["--nproc", "2", "--device", "cuda", "--backend",
+                      "gloo", "--n-envs", str(B_MAIN), "--out",
+                      os.path.join(run_root, "multihost_smoke.json")])
+    say(f"phase 15d smoke tool: {rec['processes']} ranks, Reach at "
+        f"n_envs={B_MAIN}: {rec['t_step_ms']:.3f} ms per sharded step, "
+        f"{rec['t_step_with_collective_ms']:.3f} with the collective, "
+        f"collective_overhead_fraction {rec['collective_overhead_fraction']:.4f}"
+        f", errors {rec['max_errors']}, transport {rec['transport']} | "
+        f"{card}")
+    return rec
+
+
+class NewK1Wrappers:
+    """Every K1 wrapper made inside the block, whose counts start at 0 as
+    it is made: a campaign tool builds its own cores."""
+
+    def __init__(self, CD):
+        self.CD, self.made = CD, []
+
+    def __enter__(self):
+        init = self._init = self.CD.CudaMotorSteps.__init__
+        made = self.made
+
+        def record(wrapper, *a, **kw):
+            init(wrapper, *a, **kw)
+            made.append(wrapper)
+
+        self.CD.CudaMotorSteps.__init__ = record
+        return self
+
+    def __exit__(self, *exc):
+        self.CD.CudaMotorSteps.__init__ = self._init
+
+    def counts(self):
+        out = {self.CD.LANES: 0, self.CD.THREAD: 0}
+        for w in self.made:
+            for k, v in w.kernel_launches.items():
+                out[k] += v
+        return out
+
+
+def drive_continue(CD, card, run_root):
+    """Phase 15e: continue_population from phase 13's member checkpoints
+    (best_model_m<k>.ckpt), one collect rollout of its 4 x 64 envs (a
+    budget of one env step: episodes that end early would leave a rollout
+    short of 64 x 20)."""
+    from panda_gym_tpu_torch.rl import continue_population
+    from panda_gym_tpu_torch.rl.checkpoint import load_checkpoint
+
+    src = os.path.join(run_root, "chip_smoke", "phase13")
+    step0 = load_checkpoint(os.path.join(src, "best_model_m0.ckpt"))[
+        "ts"]["step"]
+    t0 = time.perf_counter()
+    with NewK1Wrappers(CD) as k1:
+        pt = continue_population.main([
+            "--src", src, "--ckpt", "best_model", "--stage", POP_SCENE,
+            "--steps", "1", "--learning-starts", str(MESH_STEPS),
+            "--root", run_root, "--group", "chip_smoke", "--name",
+            "phase15_continue", "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = k1.counts()
+    out = os.path.join(run_root, "chip_smoke", "phase15_continue")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rollouts = sum("rollout_success" in json.loads(ln) for ln in f)
+    checks = {
+        "one rollout": rollouts == 1,
+        "K1: 20 launches per env step, on the lane-group kernel":
+            counts == {CD.LANES: N_SUBSTEPS * HORIZON, CD.THREAD: 0},
+        "the members resumed with their update count":
+            pt.K == POP_MEMBERS and pt.pop.step == step0,
+        "the final member checkpoints": all(os.path.exists(os.path.join(
+            out, f"final_m{i}.ckpt")) for i in range(POP_MEMBERS)),
+    }
+    say(f"phase 15e continue_population: {pt.K} members from phase 13 "
+        f"(update count {step0}), one rollout of {pt.K} x {N_ENVS} envs, K1 "
+        f"launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+        f"{seconds:.1f} s, checks {checks} | {card}")
+    if not all(checks.values()):
+        fail(f"phase 15e continue_population checks failed: {checks}")
+    return counts[CD.LANES]
+
+
+def drive_distill_cli(CD, root, card, run_root):
+    """Phase 15e: distill_cli on the asset's routed generalist, reachao1
+    and narrow_tunnel, BC then one DAgger round, each round's benchmark;
+    its .policy.npz through the eval CLI."""
+    from panda_gym_tpu_torch.eval import cli as eval_cli
+    from panda_gym_tpu_torch.rl import distill_cli
+
+    asset = os.path.join(root, "panda_gym_tpu_torch", "assets", "routed_gen")
+    out = os.path.join(run_root, "distilled_gen")
+    t0 = time.perf_counter()
+    with NewK1Wrappers(CD) as k1:
+        mean, tag = distill_cli.main([
+            "--router", os.path.join(asset, "routed_policy.npz"), "--out",
+            out, "--scenarios", *CAMPAIGN_SCENES, "--bc-episodes",
+            str(CAMPAIGN_EPISODES), "--dagger-rounds", "1",
+            "--dagger-episodes", str(CAMPAIGN_EPISODES), "--horizon",
+            str(CAMPAIGN_HORIZON), "--steps", str(CAMPAIGN_STEPS),
+            "--episodes", str(CAMPAIGN_EPISODES), "--bench-horizon",
+            str(CAMPAIGN_HORIZON), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = k1.counts()
+    # the export alone, in a run directory of its own
+    run = os.path.join(run_root, "student")
+    os.makedirs(run)
+    for f in ("best_model.policy.npz", "config.json"):
+        shutil.copy(os.path.join(out, f), os.path.join(run, f))
+    res = eval_cli.main([run, "--scenarios", CAMPAIGN_SCENES[0], "--episodes",
+                         str(CAMPAIGN_EPISODES), "--horizon", "2", "--device",
+                         "cuda"])
+    collect = N_SUBSTEPS * CAMPAIGN_HORIZON * len(CAMPAIGN_SCENES) * 2
+    checks = {
+        "K1: 20 launches per env step, on the lane-group kernel (the "
+        "collections' steps and at most the benchmarks')":
+            counts[CD.THREAD] == 0 and counts[CD.LANES] % N_SUBSTEPS == 0
+            and collect < counts[CD.LANES] <= 2 * collect,
+        "the student's rates in [0, 1]": 0.0 <= mean <= 1.0,
+        "its .policy.npz runs in the eval CLI":
+            res[CAMPAIGN_SCENES[0]]["scenario_episodes"] == CAMPAIGN_EPISODES,
+    }
+    say(f"phase 15e distill_cli: {CAMPAIGN_EPISODES} episodes of "
+        f"{CAMPAIGN_HORIZON} steps on {' and '.join(CAMPAIGN_SCENES)}, "
+        f"{CAMPAIGN_STEPS} BC steps a round, one DAgger round: best round "
+        f"{tag}, mean success {mean:.4f}; K1 launches "
+        f"{({KERNEL_NAMES[k]: v for k, v in counts.items()})}, {seconds:.1f} "
+        f"s, checks {checks} | {card}")
+    if not all(checks.values()):
+        fail(f"phase 15e distill_cli checks failed: {checks}")
+    return counts[CD.LANES]
+
+
+def drive_build_router(CD, root, dev, card, run_root):
+    """Phase 15e: build_router from a run-data root made of the asset's
+    members (reachao1's and narrow_tunnel's controllers), 200 training
+    steps; the saved policy loads, and its routed action on the card
+    equals the CPU's by phase 9's rule."""
+    from panda_gym_tpu_torch.eval import build_router
+    from panda_gym_tpu_torch.eval.router import load_routed_policy
+    from panda_gym_tpu_torch.rl.policy_io import FORMAT, write_policy
+
+    asset = os.path.join(root, "panda_gym_tpu_torch", "assets", "routed_gen")
+    data_root = os.path.join(run_root, "run_data")
+    with np.load(os.path.join(asset, "routed_policy.npz")) as z:
+        meta = json.loads(str(z["__meta__"]))
+        members = {k[len("members/"):]: z[k] for k in z.files
+                   if k.startswith("members/")}
+    for sc in CAMPAIGN_SCENES:
+        for rel in build_router.CONTROLLERS[sc]:
+            run = os.path.join(data_root, rel)
+            if os.path.exists(run):
+                continue
+            i = [m.endswith("/" + rel) for m in meta["members"]].index(True)
+            write_policy(os.path.join(run, "best_model.policy.npz"),
+                         {k: v[i] for k, v in members.items()},
+                         {"format": FORMAT, "algorithm": "TQC",
+                          "use_sde": bool(meta["use_sde"])})
+            shutil.copy(os.path.join(asset, "config.json"), run)
+    out = os.path.join(run_root, "routed_gen")
+    t0 = time.perf_counter()
+    with NewK1Wrappers(CD) as k1:
+        build_router.main([
+            "--root", data_root, "--out", out, "--scenarios",
+            *CAMPAIGN_SCENES, "--collect-episodes", str(CAMPAIGN_EPISODES),
+            "--collect-horizon", str(CAMPAIGN_HORIZON), "--steps",
+            str(CAMPAIGN_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = k1.counts()
+    npz = os.path.join(out, "routed_policy.npz")
+    policy, rmeta = load_routed_policy(npz, dev)
+    with np.load(os.path.join(out, "data",
+                              f"collect_{CAMPAIGN_SCENES[1]}.npz")) as z:
+        x = torch.as_tensor(z["X"][:EVAL_EPISODES], device=dev)
+    err = routed_vs_cpu(policy, npz, x, card, "phase 15e build_router")
+    checks = {
+        "K1: 20 launches per env step, on the lane-group kernel": counts
+            == {CD.LANES: N_SUBSTEPS * CAMPAIGN_HORIZON * len(CAMPAIGN_SCENES),
+                CD.THREAD: 0},
+        "the table's pool and controllers": len(policy.members) == len(
+            {m for sc in CAMPAIGN_SCENES for m in build_router.CONTROLLERS[sc]})
+            and list(rmeta["scene_to_controller"]) == list(CAMPAIGN_SCENES),
+    }
+    say(f"phase 15e build_router: {len(policy.members)} members, "
+        f"{policy.masks.shape[0]} controllers, {CAMPAIGN_EPISODES} episodes of "
+        f"{CAMPAIGN_HORIZON} steps collected per scene, {CAMPAIGN_STEPS} router "
+        f"steps, validation accuracy {rmeta['val_acc_per_class']}; K1 "
+        f"launches {({KERNEL_NAMES[k]: v for k, v in counts.items()})}, "
+        f"{seconds:.1f} s, routed action card vs CPU max |d| {err:.3e}, "
+        f"checks {checks} | {card}")
+    if not all(checks.values()):
+        fail(f"phase 15e build_router checks failed: {checks}")
+    return counts[CD.LANES]
+
+
+def phase15(CD, root, dev, card, run_root):
+    """Phase 15: the mesh (a-d) and the campaign tools (e)."""
+    t0 = time.perf_counter()
+    mark = lambda what: say(  # noqa: E731
+        f"phase 15 {what} at {time.perf_counter() - t0:.1f} s")
+    w1 = mesh_one_rank(CD, dev, card, run_root)
+    mark("one rank on NCCL done")
+    w2 = mesh_two_ranks(CD, card, run_root)
+    mark("two ranks over gloo done")
+    rec = mesh_smoke(card, run_root)
+    mark("smoke tool done")
+    tools = (drive_continue(CD, card, run_root),
+               drive_distill_cli(CD, root, card, run_root),
+               drive_build_router(CD, root, dev, card, run_root))
+    say(f"phase 15 env-steps/s on one card: W=1 {w1[0]:.1f}, W=2 "
+        f"{w2[0]:.1f}; collective_overhead_fraction over gloo "
+        f"{rec['collective_overhead_fraction']:.4f} | {card}")
+    say(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
+    return w1, w2, rec, tools
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", metavar="ROOT",
@@ -4224,12 +4772,19 @@ def main():
         make_core, _hi_prec, CD, rng, dev, card)
 
     # --------------------------------------------------------------- 13
-    pop, pop_times, off, ppo, distill, reach_times = phase13(CD, root, rng,
-                                                             dev, card)
+    # phases 13-15 keep their runs here: phase 15 continues phase 13's
+    # population
+    runs = tempfile.TemporaryDirectory()
+    pop, pop_times, off, ppo, distill, reach_times = phase13(
+        CD, root, rng, dev, card, runs.name)
 
     # --------------------------------------------------------------- 14
     grav_err, golden, adapters, vector, facade, b1 = phase14(
         CD, _hi_prec, model, rng, dev, card)
+
+    # --------------------------------------------------------------- 15
+    phase15(CD, root, dev, card, runs.name)
+    runs.cleanup()
 
     def bound_by(ops, bytes_per_env=K1_BYTES):
         return ("operations" if float(ops) / PEAK_FP32_OPS

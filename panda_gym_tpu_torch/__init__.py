@@ -13,7 +13,10 @@ bootstrap, the ``prior`` and ``bcf`` evaluation strategies).
 TQC + HER on them, the learner and the buffer on the env's device, and
 ``eval.benchmark.perform_benchmark`` (or ``python -m
 panda_gym_tpu_torch.eval.cli``) scores a policy on the reference's
-13-scene protocol.
+13-scene protocol.  ``parallel.mesh`` shards the env batch and the replay
+over one process per card under torch.distributed (``Trainer(...,
+mesh=make_env_mesh())``); ``rl.distill_cli``, ``rl.continue_population``
+and ``eval.build_router`` are the campaign tools.
 
 The gym surface: ``register_envs(max_ep_steps)`` registers every env id of
 the JAX package under the gymnasium namespace ``panda_gym_tpu_torch/``

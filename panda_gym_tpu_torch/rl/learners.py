@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from panda_gym_tpu_torch.parallel.mesh import mean_gradients
 from panda_gym_tpu_torch.rl.checkpoint import restore_tensors
 from panda_gym_tpu_torch.rl.networks import (
     DeterministicActor, QCritic, SDEGaussianActor, SquashedGaussianActor,
@@ -96,13 +97,16 @@ def load_state(ts: TrainState, state: Dict, what: str = "learner"):
     return ts
 
 
-def _step_grad(opt, params, loss, keep=True):
+def _step_grad(opt, params, loss, keep=True, mesh=None):
     """One Adam step on the gradient of ``loss``; with ``keep`` false the
     gradient is replaced by zeros and the step still runs (the moments
     decay, the count advances and the parameters move by momentum), as
     optax.adam does with TD3's masked gradient (learners.py:334-339).
-    torch.optim.Adam would skip a parameter whose .grad is None."""
+    torch.optim.Adam would skip a parameter whose .grad is None.  With a
+    mesh the gradient is the ranks' mean (parallel/mesh.py)."""
     grads = torch.autograd.grad(loss, params)
+    if keep:
+        grads = mean_gradients(grads, mesh)
     for p, g in zip(params, grads):
         p.grad = g if keep else torch.zeros_like(g)
     opt.step()
@@ -117,6 +121,9 @@ class _Base:
     update throughout; then the target's soft update from the new critic."""
 
     uses_alpha = True
+    # the env mesh whose ranks hold this learner's replicas (the Trainer
+    # sets it); None: one process
+    mesh = None
 
     def __init__(self, obs_dim: int, act_dim: int, hp, device="cuda"):
         self.obs_dim = obs_dim
@@ -182,17 +189,18 @@ class _Base:
         target = self.target(ts, batch, noise_t, alpha)
 
         closs = self.critic_loss(ts.critic, batch, target)
-        _step_grad(ts.critic_opt, list(ts.critic.parameters()), closs)
+        _step_grad(ts.critic_opt, list(ts.critic.parameters()), closs,
+                   mesh=self.mesh)
 
         aloss, logp = self.actor_loss(ts.actor, ts.critic, batch["x"],
                                       noise_a, alpha)
         _step_grad(ts.actor_opt, list(ts.actor.parameters()), aloss,
-                   self.actor_steps(ts.step))
+                   self.actor_steps(ts.step), self.mesh)
         m = dict(critic_loss=closs.detach(), actor_loss=aloss.detach())
         if self.uses_alpha:
             lloss = -torch.mean(ts.log_alpha * (logp.detach()
                                                 + self.target_entropy))
-            _step_grad(ts.alpha_opt, [ts.log_alpha], lloss)
+            _step_grad(ts.alpha_opt, [ts.log_alpha], lloss, mesh=self.mesh)
             m["alpha"] = alpha
 
         self.soft_update(ts.critic, ts.target_critic)

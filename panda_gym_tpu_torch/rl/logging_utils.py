@@ -29,16 +29,7 @@ class RunLogger:
         self._fh = open(os.path.join(self.dir, "metrics.jsonl"), "a")
         self._tb = None
         if config is not None:
-            cfg = asdict(config) if is_dataclass(config) else dict(config)
-            # hyperparams as a plain dict, so that eval can rebuild the exact
-            # learner (load_model_utils.py:43-50)
-            hp = cfg.pop("hyperparams", None)
-            if hp is not None and hasattr(hp, "as_dict"):
-                cfg["hyperparams"] = hp.as_dict()
-            elif isinstance(hp, dict):
-                cfg["hyperparams"] = hp
-            with open(os.path.join(self.dir, "config.json"), "w") as f:
-                json.dump(cfg, f, indent=1, default=str)
+            write_config(self.dir, config)
         if use_wandb:
             print("wandb unavailable (the port does not log to W&B); "
                   "logging to JSONL only")
@@ -70,6 +61,22 @@ class RunLogger:
         self._fh.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def write_config(run_dir: str, config) -> str:
+    """A TrainConfig as the run's ``config.json``, its hyperparams as a
+    plain dict, so that eval can rebuild the exact learner
+    (load_model_utils.py:43-50)."""
+    cfg = asdict(config) if is_dataclass(config) else dict(config)
+    hp = cfg.pop("hyperparams", None)
+    if hp is not None and hasattr(hp, "as_dict"):
+        cfg["hyperparams"] = hp.as_dict()
+    elif isinstance(hp, dict):
+        cfg["hyperparams"] = hp
+    path = os.path.join(run_dir, "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1, default=str)
+    return path
 
 
 def get_run_dirs(group: str, root: str = "training/run_data"):

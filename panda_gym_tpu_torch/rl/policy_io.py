@@ -37,8 +37,14 @@ def export_policy(ckpt_path: str, out_path: str, config=None) -> str:
                     log_std_init=pk.get("log_std_init", None))
     # the checkpoint's ACTUAL actor type
     meta["use_sde"] = "actor/log_std_sde" in tensors
-    arrays = flax_params({k[len("actor/"):]: v for k, v in tensors.items()
-                          if k.startswith("actor/")})
+    return write_policy(out_path, flax_params(
+        {k[len("actor/"):]: v for k, v in tensors.items()
+         if k.startswith("actor/")}), meta)
+
+
+def write_policy(out_path: str, arrays: Dict[str, np.ndarray],
+                 meta: Dict[str, Any]) -> str:
+    """An actor's Flax-named arrays and its metadata as a .policy.npz."""
     if not out_path.endswith(".npz"):
         out_path += ".npz"
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)

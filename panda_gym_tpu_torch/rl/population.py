@@ -42,9 +42,10 @@ from torch.func import functional_call, vmap
 
 from panda_gym_tpu_torch.envs.core import RobotTaskEnv
 from panda_gym_tpu_torch.rl import her
-from panda_gym_tpu_torch.rl.checkpoint import save_checkpoint
+from panda_gym_tpu_torch.rl.checkpoint import load_checkpoint, save_checkpoint
 from panda_gym_tpu_torch.rl.config import TrainConfig
 from panda_gym_tpu_torch.rl.learners import (TrainState, _step_grad, adam,
+                                             align_sde_with_ckpt, load_state,
                                              make_learner, named_state,
                                              save_state)
 from panda_gym_tpu_torch.rl.train import (VectorEnv, learner_batch,
@@ -268,6 +269,7 @@ class PopulationTrainer:
         self.timesteps = 0        # aggregate env steps across members
         self._seed = config.seed
         self._best_eval = None    # (K,) per-member best eval success
+        self._loaded = None       # pending member states (load_members)
 
     # ------------------------------------------------------------------
     def learn(self, seed: Optional[int] = None):
@@ -299,7 +301,15 @@ class PopulationTrainer:
             self.stacked = StackedLearner(
                 make_learner(cfg.algorithm, venv.x_dim, venv.act_dim,
                              cfg.hyperparams, dev), self.K)
-            if self.pop is None:
+            if self._loaded is not None:
+                # templates from a generator of their own, so that the
+                # run's stream does not depend on the loaded members
+                self.pop = self.stacked.stack([load_state(
+                    self.stacked.learner.init(
+                        torch.Generator(device=dev).manual_seed(0)), state)
+                    for state in self._loaded])
+                self._loaded = None
+            elif self.pop is None:
                 self.pop = self.stacked.init(self.generator)
         if self.buffer is None or self.buffer.ep_horizon < venv.horizon:
             self.buffer = her.create_stacked(
@@ -419,3 +429,15 @@ class PopulationTrainer:
     def save_members(self, prefix: str):
         for i in range(self.K):
             self.save_member(f"{prefix}_m{i}.ckpt", i)
+
+    def load_members(self, paths: List[str]):
+        """Seed the K members from checkpoints in the Trainer's format
+        (save_members writes them), optimizer state included; learn() then
+        continues from them with a fresh buffer."""
+        states = [load_checkpoint(p)["ts"] for p in paths]
+        if len(states) != self.K:
+            raise ValueError(f"{len(states)} member checkpoints for "
+                             f"{self.K} members")
+        if self.config.algorithm in ("SAC", "TQC", "TQC_v2"):
+            align_sde_with_ckpt(self.config.hyperparams, states[0])
+        self._loaded = states

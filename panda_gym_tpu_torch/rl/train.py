@@ -16,7 +16,17 @@ on the card unless the caller builds its envs on the CPU.  One
 full-state checkpoint stores its state, so that a kill and resume
 reproduces the uninterrupted run.  With ``prior_steps`` the buffer is
 filled with NEO prior rollouts (rl/imitation.py) before the first collect.
-Not ported yet: the device mesh (ROADMAP item 17).
+
+With a mesh (parallel/mesh.py: one process per card under
+torch.distributed) the envs and the replay are sharded and the learner is
+replicated, as the JAX package's mesh shards them: ``n_envs``,
+``batch_size``, ``n_eval_episodes`` and the replay capacity stay global;
+each rank steps its block of n_envs / W envs from a generator of its own
+and draws batch_size / W rows from its own ring, the gradients are
+averaged over the ranks, and every decision the host takes from data
+(the step counts, the gates, evaluation, the best-model saves, the logged
+means) is taken on all-reduced values.  Rank 0 writes the files.  With no
+mesh, or a one-rank mesh, it is the single-process Trainer bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from panda_gym_tpu_torch.envs.core import RobotTaskEnv, _hi_prec
+from panda_gym_tpu_torch.parallel import mesh as M
 from panda_gym_tpu_torch.rl import her
 from panda_gym_tpu_torch.rl.checkpoint import (CheckpointManager,
                                                load_checkpoint,
@@ -37,7 +48,7 @@ from panda_gym_tpu_torch.rl.config import TrainConfig
 from panda_gym_tpu_torch.rl.imitation import fill_buffer_with_prior
 from panda_gym_tpu_torch.rl.learners import (align_sde_with_ckpt,
                                              load_state, make_learner,
-                                             save_state)
+                                             named_state, save_state)
 
 # ---------------------------------------------------------------------------
 
@@ -71,12 +82,16 @@ def keep_states(done, old, new):
 
 
 class VectorEnv:
-    """Batched env with episode rollouts (train.py:55-238, without the
-    device mesh)."""
+    """Batched env with episode rollouts (train.py:55-238).  With ``mesh``
+    ``n_envs`` is global, as in the JAX package, and this rank steps its
+    block of ``n_local`` = n_envs / W envs."""
 
-    def __init__(self, core: RobotTaskEnv, n_envs: int, horizon: int):
+    def __init__(self, core: RobotTaskEnv, n_envs: int, horizon: int,
+                 mesh: Optional[M.EnvMesh] = None):
         self.core = core
         self.n_envs = n_envs
+        self.mesh = mesh
+        self.n_local = M.split_count(n_envs, mesh, "n_envs")
         self.horizon = horizon
         # one env's reset, from a generator of its own, gives the sizes
         probe, obs = core.batched_reset(
@@ -88,7 +103,7 @@ class VectorEnv:
         self.aux_dim = core.task.reward_aux(core, probe).shape[-1]
 
     def batch_reset(self, generator):
-        return self.core.batched_reset(self.n_envs, generator)
+        return self.core.batched_reset(self.n_local, generator)
 
     def rollout_episode(self, learner, ts, generator, deterministic=False,
                         policy_fn=None):
@@ -115,7 +130,7 @@ class VectorEnv:
         learners."""
         if not hasattr(learner, "sample_expl"):
             return None
-        return learner.sample_expl(ts, generator, self.n_envs)
+        return learner.sample_expl(ts, generator, self.n_local)
 
     def env_step(self, learner, ts, states, obs, done, ep_len, generator,
                  deterministic=False, expl=None, policy_fn=None):
@@ -131,7 +146,7 @@ class VectorEnv:
         else:
             noise = None
             if not deterministic and expl is None:
-                noise = learner.act_noise(generator, self.n_envs)
+                noise = learner.act_noise(generator, self.n_local)
             action = learner.act(ts, flat_x(obs), noise,
                                  deterministic=deterministic, expl=expl)
         nstates, nobs, reward, term, trunc, info = core.batched_step(
@@ -162,8 +177,8 @@ class VectorEnv:
         states, obs0 = self.batch_reset(generator)
         obs = obs0
         dev = states.q.device
-        done = torch.zeros(self.n_envs, dtype=torch.bool, device=dev)
-        ep_len = torch.zeros(self.n_envs, dtype=torch.int32, device=dev)
+        done = torch.zeros(self.n_local, dtype=torch.bool, device=dev)
+        ep_len = torch.zeros(self.n_local, dtype=torch.int32, device=dev)
         traj, metrics = [], {}
         for _ in range(self.horizon):
             states, obs, done, ep_len, out = self.env_step(
@@ -260,14 +275,20 @@ class TrainerMetrics:
 
 
 class Trainer:
-    """learn()/train_model() equivalent (setup_training.py:182-307)."""
+    """learn()/train_model() equivalent (setup_training.py:182-307).  With
+    ``mesh`` (parallel/mesh.py::make_env_mesh) the envs and the replay are
+    sharded over the ranks and the learner replicated; every rank builds
+    its Trainer alike, and the logger and checkpoints are rank 0's."""
 
     def __init__(self, config: TrainConfig,
                  make_env: Callable[[str, float, float], RobotTaskEnv],
-                 logger=None):
+                 logger=None, mesh: Optional[M.EnvMesh] = None):
         self.config = config
         self.make_env = make_env
-        self.logger = logger
+        self.mesh = mesh
+        self.rank = 0 if mesh is None else mesh.rank
+        self.world = 1 if mesh is None else mesh.world_size
+        self.logger = logger if self.rank == 0 else None
         self.metrics = TrainerMetrics()
         self.learner = None
         self.ts = None
@@ -300,8 +321,9 @@ class Trainer:
             reached = self.train_stage(stage, horizon, ee_thr, sp_thr,
                                        cfg.success_thresholds[i],
                                        final=(i == n_stages - 1))
-            print(f"[stage {stage}] done (threshold reached: {reached}); "
-                  f"timesteps so far: {self.timesteps}")
+            if self.rank == 0:
+                print(f"[stage {stage}] done (threshold reached: "
+                      f"{reached}); timesteps so far: {self.timesteps}")
             # per-stage learner snapshot (setup_training.py:299 model.save)
             run_dir = getattr(self.logger, "dir", None)
             if run_dir:
@@ -316,8 +338,11 @@ class Trainer:
         if self.learner is None:
             self.learner = make_learner(cfg.algorithm, venv.x_dim,
                                         venv.act_dim, cfg.hyperparams, dev)
+            self.learner.mesh = self.mesh
             if self._loaded is None:
+                # every rank draws its own, then takes rank 0's
                 self.ts = self.learner.init(self.generator)
+                M.replicate(named_state(self.ts), self.mesh)
             else:
                 # a template from a generator of its own, so that the run's
                 # stream does not depend on whether the learner was loaded
@@ -328,9 +353,10 @@ class Trainer:
         if self.buffer is not None and self.buffer.device != dev:
             self.buffer = self.buffer.to(dev)
         if self.buffer is None or self.buffer.ep_horizon < venv.horizon:
-            self.buffer = her.create(capacity, venv.horizon, venv.obs_dim,
-                                     venv.goal_dim, venv.act_dim,
-                                     venv.aux_dim, dev)
+            # the episode axis tiles over the ranks (train.py:320-322)
+            self.buffer = her.create(-(-capacity // self.world), venv.horizon,
+                                     venv.obs_dim, venv.goal_dim,
+                                     venv.act_dim, venv.aux_dim, dev)
 
     def update_burst(self, ts, buf, generator, n: int, batch_size: int,
                      reward_fn):
@@ -349,17 +375,24 @@ class Trainer:
                     sp_thr: float, success_threshold: float,
                     final: bool = False) -> bool:
         cfg = self.config
+        mesh = self.mesh
         core = self.make_env(scenario, ee_thr, sp_thr)
         if self.generator is None:
-            self.generator = torch.Generator(
-                device=core.device).manual_seed(self._seed)
+            self.generator = torch.Generator(device=core.device).manual_seed(
+                M.rank_seed(self._seed, mesh))
         gen = self.generator
-        venv = VectorEnv(core, cfg.n_envs, horizon)
+        venv = VectorEnv(core, cfg.n_envs, horizon, mesh)
         self._best_eval_success = -1.0  # per-stage, like the per-stage EvalCallback
         sched = schedule(cfg, horizon)
+        # each rank draws its share of the global batch from its own ring
+        batch_size = M.split_count(sched.batch_size, mesh, "batch_size")
         self._ensure_learner(venv, sched.capacity)
         learner = self.learner
         reward_fn = self._reward_fn(core)
+        # rank 0 writes the files; the others follow its decision, since
+        # the full-state checkpoint gathers from every rank
+        run_dir = getattr(self.logger, "dir", None) or ""
+        writes = bool(M.all_sum([bool(run_dir)], mesh)[0])
 
         stage_steps = 0
         learning_started = False
@@ -383,7 +416,8 @@ class Trainer:
         if final and cfg.benchmark_eval_scenes:
             for scene in cfg.benchmark_eval_scenes:
                 bench_venvs[scene] = VectorEnv(
-                    self.make_env(scene, ee_thr, sp_thr), cfg.n_envs, horizon)
+                    self.make_env(scene, ee_thr, sp_thr), cfg.n_envs, horizon,
+                    mesh)
                 bench_best[scene] = -1.0
 
         # the NEO prior bootstrap before any learning (setup_training.py:
@@ -396,7 +430,7 @@ class Trainer:
 
         def step_update(ts, buf, generator):
             return self.update_burst(ts, buf, generator, sched.n_upd_per_step,
-                                     sched.batch_size, reward_fn)
+                                     batch_size, reward_fn)
 
         interleave = cfg.interleave_updates
         full_freq = cfg.full_ckpt_freq
@@ -409,10 +443,12 @@ class Trainer:
         def buffer_filled():
             nonlocal gate_open
             if not gate_open:
-                # a full episode ring opens it too
+                # a full episode ring opens it too (the ranks' rings fill
+                # alike)
                 gate_open = (
                     self.buffer.n_stored >= self.buffer.capacity
-                    or int(self.buffer.ep_len.sum()) >= sched.interleave_min)
+                    or M.all_sum([int(self.buffer.ep_len.sum())], mesh)[0]
+                    >= sched.interleave_min)
             return gate_open
 
         while stage_steps < cfg.max_timesteps:
@@ -428,7 +464,8 @@ class Trainer:
             else:
                 episodes, stats = venv.rollout_episode(learner, self.ts, gen)
                 self.buffer = her.add_episodes(self.buffer, **episodes)
-            rollout_steps = int(stats["ep_len"].sum())
+            rollout_steps = int(M.all_sum([int(stats["ep_len"].sum())],
+                                          mesh)[0])
             t_c = time.time() - t_c
             stage_steps += rollout_steps
             self.timesteps += rollout_steps
@@ -440,19 +477,26 @@ class Trainer:
                 t_u = time.time()
                 self.ts, m = self.update_burst(
                     self.ts, self.buffer, gen, sched.updates_per_rollout,
-                    sched.batch_size, reward_fn)
+                    batch_size, reward_fn)
                 m = {k: float(v) for k, v in m.items()}
                 t_u = time.time() - t_u
 
+            # the logged numbers are the ranks' means: every rank's row is
+            # the same
+            means = M.global_metric_mean(
+                {k: stats[k] for k in ("success", "collided", "ep_reward")},
+                mesh)
+            t_c, t_u, elapsed, *mv = M.all_mean(
+                [t_c, t_u, time.time() - t_start, *m.values()], mesh)
             row = dict(
                 scenario=scenario, timesteps=self.timesteps,
                 stage_steps=stage_steps,
-                rollout_success=float(stats["success"].mean()),
-                rollout_collided=float(stats["collided"].mean()),
-                rollout_reward=float(stats["ep_reward"].mean()),
-                sps=self.timesteps / max(time.time() - t_start, 1e-9),
+                rollout_success=float(means["success"]),
+                rollout_collided=float(means["collided"]),
+                rollout_reward=float(means["ep_reward"]),
+                sps=self.timesteps / max(elapsed, 1e-9),
                 t_collect=round(t_c, 4), t_update=round(t_u, 4),
-                **m)
+                **dict(zip(m, mv)))
             self.metrics.log(row)
             if self.logger is not None:
                 self.logger.log(row)
@@ -470,8 +514,7 @@ class Trainer:
                 # best_model.ckpt on the stage's own scenario, the artifact
                 # the reference's EvalCallback keeps as best_model.zip
                 # (setup_training.py:277-279)
-                run_dir = getattr(self.logger, "dir", None)
-                if run_dir and sr > self._best_eval_success:
+                if writes and sr > self._best_eval_success:
                     self._best_eval_success = sr
                     self.save(os.path.join(run_dir, "best_model.ckpt"))
                 for scene, bvenv in bench_venvs.items():
@@ -482,7 +525,7 @@ class Trainer:
                     self.metrics.log(dict(row, scenario=scenario))
                     if self.logger is not None:
                         self.logger.log(row)
-                    if bsr > bench_best[scene] and run_dir:
+                    if bsr > bench_best[scene] and writes:
                         bench_best[scene] = bsr
                         self.save(os.path.join(run_dir,
                                                f"best_model_{scene}.ckpt"))
@@ -492,19 +535,21 @@ class Trainer:
             # periodic full-training-state checkpoint, at the end of a loop
             # iteration, so resume continues with exactly the next rollout
             # the uninterrupted run would have collected
-            if full_freq and stage_steps % full_freq < rollout_steps:
-                run_dir = getattr(self.logger, "dir", None)
-                if run_dir:
-                    self._write_full_state(run_dir, stage_steps,
-                                           learning_started)
+            if (writes and full_freq
+                    and stage_steps % full_freq < rollout_steps):
+                self._write_full_state(run_dir, stage_steps, learning_started)
         return False
 
     def _write_full_state(self, run_dir: str, stage_steps: int,
-                          learning_started: bool) -> str:
+                          learning_started: bool) -> Optional[str]:
         """Learner + buffer + generator state + counters, rolling (keep=2):
         everything a kill and resume needs to reproduce the uninterrupted
-        run."""
-        mgr = CheckpointManager(os.path.join(run_dir, "full_state"), keep=2)
+        run.  Under a mesh of W > 1 every rank calls it: the file holds the
+        learner once and each rank's generator and buffer shard, gathered
+        to rank 0, which writes it."""
+        local = {"generator": self.generator.get_state(),
+                 "buffer": None if self.buffer is None else her.save_state(
+                     self.buffer)}
         payload = {
             "algorithm": self.config.algorithm,
             "timesteps": self.timesteps,
@@ -512,11 +557,16 @@ class Trainer:
             "stage_steps": stage_steps,
             "learning_started": learning_started,
             "best_eval_success": self._best_eval_success,
-            "generator": self.generator.get_state(),
             "ts": save_state(self.ts),
-            "buffer": None if self.buffer is None else her.save_state(
-                self.buffer),
         }
+        if self.world == 1:
+            payload.update(local)
+        else:
+            payload.update(world_size=self.world,
+                           ranks=M.gather_to_rank0(local, self.mesh))
+        if self.rank != 0:
+            return None
+        mgr = CheckpointManager(os.path.join(run_dir, "full_state"), keep=2)
         return mgr.save(self.timesteps, payload)
 
     def load_full(self, path: str):
@@ -524,7 +574,9 @@ class Trainer:
         (a ``ckpt_<step>`` file or the ``full_state`` directory, whose
         newest is taken).  learn() then skips to the saved stage and
         continues mid-stage.  Final-stage per-scene high-water marks are not
-        kept (best_model_<scene>.ckpt snapshots may re-save)."""
+        kept (best_model_<scene>.ckpt snapshots may re-save).  A checkpoint
+        of W ranks resumes on W ranks only; its learner alone loads
+        anywhere through ``load``."""
         if os.path.isdir(path):
             latest = CheckpointManager(path).latest()
             if latest is None:
@@ -535,6 +587,14 @@ class Trainer:
             raise ValueError(
                 f"checkpoint algorithm {payload.get('algorithm')!r} != "
                 f"config {self.config.algorithm!r}")
+        saved = int(payload.get("world_size", 1))
+        if saved != self.world:
+            raise ValueError(
+                f"{path} holds the state of {saved} ranks; this run has "
+                f"{self.world}: a full-state resume takes the same world size "
+                f"(Trainer.load reads its learner alone)")
+        if saved > 1:
+            payload = dict(payload, **payload.pop("ranks")[self.rank])
         self.timesteps = int(payload["timesteps"])
         self._resume = payload
 
@@ -546,19 +606,32 @@ class Trainer:
     # ------------------------------------------------------------- eval
     def evaluate(self, venv: VectorEnv, generator,
                  n_episodes: int = 100) -> float:
+        """Deterministic success over the first ``n_episodes`` episodes of
+        the global order (round-major, then rank-major), on every rank."""
         rounds = max(1, math.ceil(n_episodes / venv.n_envs))
+        start = (0 if venv.mesh is None
+                 else M.env_sharding(venv.mesh, venv.n_envs)[0])
         succ = []
-        for _ in range(rounds):
+        for j in range(rounds):
             _, stats = venv.rollout_episode(self.learner, self.ts, generator,
                                             deterministic=True)
-            succ.append(stats["success"])
-        return float(torch.cat(succ)[:n_episodes].mean())
+            keep = n_episodes - (j * venv.n_envs + start)
+            succ.append(stats["success"][:max(keep, 0)])
+        return float(M.global_metric_mean({"s": torch.cat(succ)},
+                                          venv.mesh)["s"])
 
     # ------------------------------------------------------------- ckpt
     def save(self, path: str, include_buffer: bool = False):
         """Checkpoint for resume (continue_learning, setup_training.py:
         383-422): learner state + step counter, optionally the full replay
-        buffer."""
+        buffer.  Under a mesh rank 0 writes the learner and the other
+        ranks return; a buffer is a shard there, saved only in the
+        full-state checkpoint."""
+        if include_buffer and self.world > 1:
+            raise ValueError("under a mesh of W > 1 the buffer is sharded: "
+                             "the full-state checkpoint holds every shard")
+        if self.rank != 0:
+            return
         payload = {"ts": save_state(self.ts), "timesteps": self.timesteps,
                    "algorithm": self.config.algorithm}
         if include_buffer and self.buffer is not None:
@@ -580,4 +653,7 @@ class Trainer:
         else:
             load_state(self.ts, payload["ts"], "learner")
         if restore_buffer and "buffer" in payload:
+            if self.world > 1:
+                raise ValueError("a single-process buffer cannot be "
+                                 "restored into a sharded run")
             self.buffer = her.from_state(payload["buffer"])

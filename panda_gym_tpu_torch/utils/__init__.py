@@ -1,5 +1,13 @@
 """Vector math helpers mirroring the reference's panda_gym/utils.py
-(port of panda_gym_tpu/utils/__init__.py)."""
+(port of panda_gym_tpu/utils/__init__.py), and ``profiling`` (traces and
+step timers).
+
+The JAX package's ``utils/cache.py`` (the persistent XLA compile cache its
+tools turn on) has no counterpart here: the port compiles nothing at run
+time but kernel K1, and ``ops/_build.py`` already keeps K1's library
+under ``build/panda_gym_tpu_torch/``, named by a hash of its source and
+flags, where every later process (and every rank of a mesh) finds it.
+"""
 import torch
 
 
